@@ -1,19 +1,14 @@
-"""Benchmark scene builders shared by bench.py and ad-hoc profiling.
+"""Benchmark scene builders shared by bench.py, parity_check.py and
+chip_smoke.py.
 
-``build_large_scene`` assembles the BASELINE config-4 regime: the reference
-bunny (69k triangles) midpoint-subdivided twice to ~1.1M triangles, a rough
-conductor material, and the reference lat-long environment emitter.  Falls
-back to a procedurally displaced sphere mesh of the same triangle count when
-the reference fixtures are absent.
+``build_large_scene`` assembles the BASELINE config-4 regime: a ~1.1M
+triangle mesh (a procedurally displaced sphere, made in-repo so no
+external fixture is needed), a rough conductor material, and a constant
+environment emitter.
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
-
-ENVMAP = "/root/reference/data/tests/envmap.exr"
-BUNNY = "/root/reference/data/tests/bunny.ply"
 
 
 def subdivide_midpoint(pos: np.ndarray, idx: np.ndarray, rounds: int = 1):
@@ -38,7 +33,7 @@ def subdivide_midpoint(pos: np.ndarray, idx: np.ndarray, rounds: int = 1):
 
 
 def _displaced_sphere(n_tris_target: int) -> tuple[np.ndarray, np.ndarray]:
-    """Procedural fallback: icosphere-ish UV sphere with radial noise."""
+    """UV sphere with radial noise, ~``n_tris_target`` triangles."""
     n = int(np.sqrt(n_tris_target / 2)) + 1
     th = np.linspace(1e-3, np.pi - 1e-3, n)
     ph = np.linspace(0, 2 * np.pi, n, endpoint=False)
@@ -55,31 +50,24 @@ def _displaced_sphere(n_tris_target: int) -> tuple[np.ndarray, np.ndarray]:
     return pos, np.asarray(idx, np.int64)
 
 
-def build_large_scene(res: int = 512, subdiv: int = 2):
-    """Scene with ~1M tris + envmap. Returns (scene, (W, H), n_tris).
+def build_large_scene(width: int = 512, height: int | None = None,
+                      subdiv: int = 2, max_depth: int = 3):
+    """Scene with ~70k * 4**subdiv tris under a constant environment.
 
-    ``subdiv``: midpoint-subdivision rounds on the bunny (2 -> ~1.1M tris,
-    the bench regime; 0 -> the raw 69k mesh, used by the parity gate where
-    a CPU-backend render must stay cheap)."""
+    Returns (scene, settings, n_tris).  ``subdiv`` 2 gives the ~1.1M
+    triangle bench regime; 0 the 70k mesh, used by the parity check where a
+    CPU-backend render must stay cheap."""
     from mitsuba_im_tpu.scene.build import SceneBuilder
-    from mitsuba_im_tpu.scene.mesh import TriMesh, load_ply
+    from mitsuba_im_tpu.scene.mesh import TriMesh
     from mitsuba_im_tpu.core.transform import Transform
     from mitsuba_im_tpu.core.registry import create as reg_create
     from mitsuba_im_tpu.core.properties import Properties
     from mitsuba_im_tpu.sensor.table import make_sensor, S_PERSPECTIVE
     from mitsuba_im_tpu.film.film import F_BOX
 
+    height = height or width
     b = SceneBuilder()
-
-    if os.path.exists(BUNNY):
-        base = load_ply(BUNNY)
-        pos, idx = subdivide_midpoint(
-            np.asarray(base.positions), np.asarray(base.indices),
-            rounds=subdiv)
-        look = ([-0.05, 0.12, 0.25], [-0.02, 0.1, 0], [0, 1, 0])
-    else:
-        pos, idx = _displaced_sphere(70_000 * 4 ** subdiv)
-        look = ([0.0, 0.05, 0.3], [0, 0, 0], [0, 1, 0])
+    pos, idx = _displaced_sphere(70_000 * 4 ** subdiv)
     mesh = TriMesh(pos, idx).compute_normals()
 
     mat = Properties("roughconductor")
@@ -88,20 +76,17 @@ def build_large_scene(res: int = 512, subdiv: int = 2):
     bid = b.add_bsdf(reg_create("bsdf", mat, b))
     sid = b.new_shape(bid)
     b.add_trimesh(mesh, sid)
+    b.add_emitter(reg_create("emitter", Properties("constant"), b))
 
-    if os.path.exists(ENVMAP):
-        ep = Properties("envmap")
-        ep.set("filename", ENVMAP)
-        b.add_emitter(reg_create("emitter", ep, b))
-    else:
-        cp = Properties("constant")
-        b.add_emitter(reg_create("emitter", cp, b))
-
-    b.sensor = make_sensor(S_PERSPECTIVE, Transform.look_at(*look),
-                           fov_deg=40.0)
-    b.settings.width = b.settings.height = res
+    b.sensor = make_sensor(
+        S_PERSPECTIVE,
+        Transform.look_at([0.0, 0.05, 0.3], [0, 0, 0], [0, 1, 0]),
+        fov_deg=40.0)
+    b.settings.width = width
+    b.settings.height = height
     b.settings.spp = 1
     b.settings.rfilter = F_BOX
     b.settings.integrator = "path"
-    scene, _settings = b.build()
-    return scene, (res, res), int(len(idx))
+    b.settings.integrator_props = dict(max_depth=max_depth)
+    scene, settings = b.build()
+    return scene, settings, int(len(idx))

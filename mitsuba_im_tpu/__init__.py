@@ -1,15 +1,15 @@
-"""mitsuba_im_tpu — a TPU-native differentiable Monte Carlo renderer.
+"""mitsuba_im_tpu — a differentiable Monte Carlo renderer on JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of the
+Built from scratch in JAX/XLA with the capability surface of the
 reference C++ renderer mitsuba-im (interactive fork of Mitsuba 0.6): scene
 XML loading, a wavefront path-tracing core with NEE + MIS, a plugin surface
 of BSDFs/emitters/sensors/samplers/films/shapes/media, responsive
 progressive rendering, and (beyond the reference) reverse-mode
 scene-parameter gradients via path-replay backpropagation, sharded across
-TPU meshes with shard_map.
+device meshes with shard_map.
 
 Top-level imports are lazy (PEP 562) so pure-I/O tooling (mtsutil tonemap,
-image conversion) never initializes JAX or touches the TPU.
+image conversion) never initializes JAX or touches the device.
 """
 
 __version__ = "0.1.0"

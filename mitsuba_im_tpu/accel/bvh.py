@@ -4,9 +4,8 @@ Design (SURVEY.md §7): the reference's SAH kd-tree
 (``/root/reference/include/mitsuba/render/gkdtree.h:706``) is replaced by a
 *threaded BVH*: nodes in depth-first order, each carrying a ``skip`` link to
 its subtree's continuation, so device traversal is a stackless while-loop —
-per-lane state is a single node index, which maps cleanly onto 8x128 vector
-lanes.  Built host-side (C++ binned SAH via :mod:`native`, numpy median-split
-fallback) and flattened into HBM-resident arrays.
+per-lane state is a single node index.  Built host-side (C++ binned SAH via :mod:`native`, numpy median-split
+fallback) and flattened into device-resident arrays.
 """
 from __future__ import annotations
 

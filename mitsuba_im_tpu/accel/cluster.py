@@ -1,14 +1,13 @@
-"""Cluster-marching intersector for large scenes on TPU.
+"""Single-level cluster-marching intersector for large scenes.
 
-The classic per-lane BVH walk is hostile to TPU vector lanes: every step is
-a data-dependent gather and all 8x128 lanes wait for the slowest walker
-(measured ~0.01 MRays/s on a v5e).  This scheme restructures traversal as
-wavefront-friendly dense math:
+In the classic per-lane BVH walk every step is a data-dependent gather and
+all lanes wait for the slowest walker.  This scheme restructures traversal
+as wavefront-friendly dense math:
 
 - triangles are partitioned into AABB clusters of <=64 via the binned-SAH
   builder (leaf size 64), stored as padded (C, 64, 9) blocks;
 - each ray marches clusters in increasing entry-t order: every visit
-  *recomputes* all C slab tests (dense (N, chunk) VPU work — far cheaper
+  *recomputes* all C slab tests (dense (N, chunk) work — far cheaper
   than materializing or walking) and picks the nearest unvisited cluster
   with entry < current best hit;
 - the chosen cluster's 64 triangles load as ONE contiguous 2.3 KB row

@@ -1,40 +1,29 @@
 """Two-level cluster hierarchy: the large-scene (~1M+ triangle) intersector.
 
-This is the TPU answer to the reference's SAH kd-tree
+This is the accelerator answer to the reference's SAH kd-tree
 (``/root/reference/include/mitsuba/render/gkdtree.h:1050`` parallel build,
 ``skdtree.h:431`` Havran traversal): instead of a per-lane pointer walk
-(hostile to 8x128 vector lanes — every step is a divergent gather), rays
-march *supers* in increasing entry-``t`` order using a lexicographic gate,
-so all per-step work is dense vector math plus one contiguous row gather:
+(every step a divergent gather), rays march *supers* in increasing
+entry-``t`` order using a lexicographic gate, so all per-step work is dense
+vector math plus one contiguous row gather:
 
 - **clusters**: <=``LEAF`` triangles each (binned-SAH leaves), stored as one
-  *lane-aligned packed row* per cluster — ``(C, 640)`` f32: 64 triangles x 9
-  floats (p0|e1|e2) plus the 64 primitive ids bitcast into the tail.  One
+  *packed row* per cluster -- ``(C, ROW)`` f32: 64 triangles x 9 floats
+  (p0|e1|e2) plus the 64 primitive ids bitcast into the tail.  One
   cluster = one 2.5 KB row gather.
 - **supers**: <=``SUP`` clusters each (a second SAH build over cluster
   AABBs).  A ray sweeps the super AABBs (dense per-axis slab tests on
   ``(3, S_pad)`` transposed tables), enters the nearest unvisited super with
-  entry < current best hit, slab-tests its packed ``(384,)`` child-AABB row,
-  and marches the children nearest-first.
+  entry < current best hit, slab-tests its packed ``(CROW,)`` child-AABB
+  row, and marches the children nearest-first.
 
-Measured design notes (v5e, round 3).  The round-2 incarnation of this file
-ran at 0.14-0.35 Mrays/s; profiling showed every cost was an avoidable
-artifact, not a bandwidth wall:
-
-- XLA row gathers are *layout-bound*: a ``(C, 64, 9)`` gather moves 59 GB/s
-  because the trailing dim 9 breaks lane alignment, while the same bytes as
-  packed ``(C, 640)`` rows (640 = 5x128 lanes) move ~300 GB/s.  Everything
-  gathered per step is therefore packed into lane-multiple rows, with int
-  payloads bitcast into the float matrix so one gather carries them all.
-- ``argsort(512K)`` costs 0.54 ms (the round-2 profile misattributed 16 ms
-  to it), so stable-sort compaction per round is kept — it beats both
-  cumsum+scatter partition (2.6 ms) and queue-refill gathers (1.5 ms).
-- Exact CPU traversal stats on the 1.1M-triangle bench bunny show mean
-  leaf visits per ray of ~0.6-2 (p50 = 0: most rays miss the root or hit on
-  the first nearest-first visit).  Per-ray *work* is tiny; throughput is
-  set by scheduling overhead.  Hence ``K_INNER`` (steps per compaction
-  round) is small — long lockstep runs only serve stragglers while every
-  lane keeps paying the full per-step cost.
+Design notes.  Everything gathered per step is packed into one row per
+entity (int payloads bitcast into the float matrix), so each step is one
+wide gather instead of many narrow ones.  Per-ray traversal work is small
+(most rays miss the root or hit on the first nearest-first visit), so
+throughput is set by per-step scheduling overhead; ``K_INNER`` (steps per
+compaction round) is therefore small, since long lockstep runs only serve
+stragglers while every lane keeps paying the full per-step cost.
 
 Instancing (``/root/reference/src/shapes/instance.cpp:115``) composes at the
 super level: each super carries an instance id; child AABBs and triangle
@@ -49,17 +38,16 @@ import jax
 import jax.numpy as jnp
 
 from ..core.types import pytree_dataclass, static_field, Float, Int
+from .intersect import mt_planes
 
-LEAF = 64   # triangles per cluster (gather-latency sweet spot)
+LEAF = 64   # triangles per cluster
 SUP = 64    # clusters per super
-ROW = LEAF * 9 + LEAF  # 1280 = packed cluster row (tris + prim ids)
-CROW = SUP * 6         # 768 = packed child-AABB row
+ROW = LEAF * 9 + LEAF  # 640 = packed cluster row (tris + prim ids)
+CROW = SUP * 6         # 384 = packed child-AABB row
 BIG = 3.0e37
 FAR = 1.0e30  # degenerate padding box (point at +FAR: every slab rejects it)
 
-FRONT = 1 << 13     # compaction front (rays stepped per round); above
-                    # ~16K lanes XLA stops fusing the (M, SUP) slab/MT
-                    # chains (measured 6x step-cost blowup at 32K)
+FRONT = 1 << 13     # compaction front (rays stepped per round)
 K_INNER = 2         # traversal steps per compaction round
 PROLOGUE = 1        # full-width traversal steps before the driver starts
 SWEEP_CHUNK = 1024  # supers per dense sweep pass (S <= 1024: single pass)
@@ -214,7 +202,7 @@ def build_hierarchy(p0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     """Two SAH passes: triangles -> clusters, cluster AABBs -> supers.
 
     ``leaf_size`` bounds the SAH leaves; DFS-consecutive leaves are then
-    merged into LEAF(=128)-wide packed rows (~97% fill, see _leaf_groups).
+    merged into LEAF-wide packed rows (see _leaf_groups).
     """
     from . import bvh as bvh_mod
 
@@ -248,7 +236,7 @@ def build_hierarchy_motion(p0, e1, e2, q0, f1, f2) -> Hierarchy:
     """Deformable two-keyframe hierarchy (the reference's space-time kd-tree
     regime, ``/root/reference/include/mitsuba/render/sahkdtree4.h:113``).
 
-    TPU redesign: one SAH build over the UNION of the two keyframes'
+    Redesign: one SAH build over the UNION of the two keyframes'
     triangle AABBs (boxes valid for every shutter time), with both frames'
     packed block tables sharing the cluster order; at traversal time the
     wavefront's shared shutter time lerps the gathered rows, so a
@@ -387,8 +375,8 @@ def _nearest_super(h: Hierarchy, o, inv_d, tmin, t_best, gate_t, gate_c):
     """Lex-gated argmin of super entry-t: chunked dense per-axis sweep.
 
     Per-axis (N, CH) arithmetic on the transposed (3, S_pad) tables keeps
-    intermediates 2-D and fusable (the round-2 (N, CH, 3) form forced ~6
-    materialized 100 MB transients per chunk)."""
+    intermediates 2-D and fusable (an (N, CH, 3) form materializes its
+    transients per chunk)."""
     N = o.shape[0]
     S_pad = h.swp_lo.shape[1]
     CH = min(SWEEP_CHUNK, S_pad)
@@ -423,8 +411,7 @@ def _nearest_super(h: Hierarchy, o, inv_d, tmin, t_best, gate_t, gate_c):
         )
         e = jnp.where(okm, tn, BIG)
         emin = jnp.min(e, axis=1)
-        # id pick via masked min over the existing id plane (argmax lowers
-        # to an iota+reduce fusion that measured 'hot' in traces)
+        # id pick via masked min over the existing id plane
         idm = jnp.min(jnp.where(e == emin[:, None], cid, IBIG), axis=1)
         take = emin < best_e
         return (jnp.where(take, emin, best_e),
@@ -532,8 +519,10 @@ def _one_step(h: Hierarchy, st, inv_d, centry_in, any_hit, fresh=False):
     if instanced:
         inst = h.sup_inst[jnp.clip(sidc, 0, h.sup_inst.shape[0] - 1)]
         Mx = h.inst_inv[jnp.clip(inst, 0, h.inst_inv.shape[0] - 1)]
-        ol = jnp.einsum("nij,nj->ni", Mx[:, :, :3], o) + Mx[:, :, 3]
-        dl = jnp.einsum("nij,nj->ni", Mx[:, :, :3], d)
+        hi = jax.lax.Precision.HIGHEST  # f32 transforms, never TF32
+        ol = jnp.einsum("nij,nj->ni", Mx[:, :, :3], o,
+                        precision=hi) + Mx[:, :, 3]
+        dl = jnp.einsum("nij,nj->ni", Mx[:, :, :3], d, precision=hi)
         dl_safe = jnp.where(jnp.abs(dl) < 1e-20,
                             jnp.where(dl < 0, -1e-20, 1e-20), dl)
         invl = 1.0 / dl_safe
@@ -582,30 +571,13 @@ def _one_step(h: Hierarchy, st, inv_d, centry_in, any_hit, fresh=False):
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = comp
     pids = jax.lax.bitcast_convert_type(row[:, LEAF * 9 :], Int)
 
-    # componentwise Moeller-Trumbore on (M, LEAF) planes (3-D intermediates
-    # defeat XLA fusion; 2-D planes stay in registers)
-    olx, oly, olz = ol[:, 0:1], ol[:, 1:2], ol[:, 2:3]
-    dlx, dly, dlz = dl[:, 0:1], dl[:, 1:2], dl[:, 2:3]
-    pvx = dly * e2z - dlz * e2y
-    pvy = dlz * e2x - dlx * e2z
-    pvz = dlx * e2y - dly * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    inv_det = jnp.where(jnp.abs(det) > 1e-12,
-                        1.0 / jnp.where(det == 0, 1.0, det), 0.0)
-    tvx = olx - p0x
-    tvy = oly - p0y
-    tvz = olz - p0z
-    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    vv = (dlx * qvx + dly * qvy + dlz * qvz) * inv_det
-    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    hitm = (
-        (jnp.abs(det) > 1e-12)
-        & (uu >= 0) & (vv >= 0) & (uu + vv <= 1)
-        & (tt > tmin[:, None]) & (tt < t_b[:, None]) & ihas[:, None]
-    )
+    # componentwise Moeller-Trumbore on (M, LEAF) planes
+    inside, tt, uu, vv = mt_planes(
+        (ol[:, 0:1], ol[:, 1:2], ol[:, 2:3]),
+        (dl[:, 0:1], dl[:, 1:2], dl[:, 2:3]),
+        (p0x, p0y, p0z), (e1x, e1y, e1z), (e2x, e2y, e2z))
+    hitm = (inside & (tt > tmin[:, None]) & (tt < t_b[:, None])
+            & ihas[:, None])
     tm = jnp.where(hitm, tt, BIG)
     tnew = jnp.min(tm, axis=1)
     better = tnew < t_b
@@ -715,7 +687,7 @@ def _run_front(h, front, any_hit, k_inner, centry=None):
 
 def intersect_hierarchy(h: Hierarchy, o, d, tmin, tmax, any_hit=False,
                         active=None, front=FRONT, k_inner=K_INNER,
-                        prologue=PROLOGUE, use_kernel=None):
+                        prologue=PROLOGUE):
     """Closest-hit (or any-hit) march over the two-level hierarchy.
 
     o, d: (N, 3) world-space rays.  Returns dict(t, u, v, prim, inst, found)
@@ -723,52 +695,32 @@ def intersect_hierarchy(h: Hierarchy, o, d, tmin, tmax, any_hit=False,
     optionally masks lanes off (sparse bounce wavefronts retire instantly
     instead of paying traversal rounds).
 
-    **Retire-cursor compaction driver** (round-4 rework; the round-3
-    attempt of this design silently corrupted TPU renders — suspected
-    duplicate-index scatter — and is now gated by ``parity_check.py`` plus
-    a unique-retire construction, see below).  The round-3 driver paid
-    ~0.9 ms/round of bookkeeping, dominated by a per-round scatter into the
-    (N, 6) result matrix that XLA laid out transposed; this driver removes
-    every per-round scatter/gather:
+    **Retire-cursor compaction driver.**  Rays are stepped ``front`` at a
+    time; no round scatters into or gathers from the full-width state:
 
     - retired rows are *appended* to a result queue with one contiguous
       ``dynamic_update_slice`` per round (the per-round sort puts real
       retirees first, so the written block's prefix is exactly the new
       results; the garbage tail is overwritten by the next round's append);
-    - refills are *contiguous slices* of the round-0-sorted pending queue
-      (the old driver gathered them through a clipped index vector);
-    - ONE final scatter places queue rows by their ray index — each real
+    - refills are *contiguous slices* of the round-0-sorted pending queue;
+    - ONE final scatter places queue rows by their ray index -- each real
       ray retires exactly once (slots are always refilled, with tombstone
       rows once the pending queue is dry), so the scatter has unique
-      indices by construction, removing the round-3 failure mode;
+      indices by construction (a duplicate-index scatter is
+      nondeterministic on accelerators; ``parity_check.py`` and
+      ``tests/test_driver_equiv.py`` pin this);
     - the (M, SUP) child-entry cache is carried through compaction inside
-      the packed state, killing the all-lanes "fresh" recompute that cost
-      ~0.1 ms/round.
+      the packed state, so no step recomputes it for every lane.
 
-    **Full-width prologue**: the driver's per-round cost is dominated by
-    fixed per-dispatch overhead at front-sized (8K-lane) shapes, while the
-    per-ray work distribution is extremely head-heavy (p50 = 1 cluster
-    visit on the 1.1M-tri bench).  So the first ``prologue`` traversal
-    steps run at FULL width — root test, first super sweep, first cluster
-    test as a handful of large, fully-amortized ops — and only the
+    **Full-width prologue**: the per-ray work distribution is head-heavy
+    (most rays need one cluster visit), so the first ``prologue``
+    traversal steps run at FULL width -- root test, first super sweep,
+    first cluster test as a handful of large ops -- and only the
     multi-visit tail enters the compaction driver.  Survivors re-enter
     with ``stale=True`` so their child-entry cache (not carried by the
     22-column pending queue) is rebuilt on their first driver step while
     their cluster-order gate resumes exactly where the prologue stopped.
     """
-    from .intersect import _use_pallas
-
-    if use_kernel is None:
-        use_kernel = False  # XLA driver measured faster; see PERF_NOTES r5
-    if use_kernel:
-        # fused Pallas step kernel (bitwise-equal traversal, see
-        # hier_kernel.py); the XLA driver below remains the CPU/parity
-        # reference and the deformable-motion path
-        from .hier_kernel import intersect_hier_kernel
-
-        return intersect_hier_kernel(h, o, d, tmin, tmax, any_hit=any_hit,
-                                     active=active)
-
     N = o.shape[0]
     tmin = jnp.broadcast_to(jnp.asarray(tmin, Float), (N,))
     tmax = jnp.broadcast_to(jnp.asarray(tmax, Float), (N,))
@@ -800,8 +752,8 @@ def intersect_hierarchy(h: Hierarchy, o, d, tmin, tmax, any_hit=False,
     P = P[perm0]
     n_act = jnp.sum(state["active"].astype(Int))
     # pad by M rows so the refill slice below never clamps its start (a
-    # clamp+roll realignment variant miscompiled on the TPU backend: the
-    # pending tail was lost, caught by parity_check + test_driver_equiv)
+    # clamp+roll realignment variant lost the pending tail on an
+    # accelerator backend; parity_check + test_driver_equiv pin this)
     P = jnp.concatenate([P, jnp.zeros((M, _NCOL), Float)], axis=0)
 
     # retire queue: rows appended per round, placed by ONE final scatter.

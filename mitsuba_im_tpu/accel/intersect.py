@@ -1,19 +1,21 @@
-"""Ray-scene intersection kernels (closest-hit and any-hit).
+"""Ray-scene intersection (closest-hit and any-hit).
 
 Replaces the reference's kd-tree traversal stack
 (``/root/reference/include/mitsuba/render/skdtree.h:431`` Havran traversal,
-``triaccel.h:37`` Wald projection test) with two TPU-native strategies:
+``triaccel.h:37`` Wald projection test) with three strategies, picked by
+the scene's size and the accelerator it carries:
 
-1. **Brute-force broadcast** — every ray tests every primitive, fully
-   vectorized over (rays x prims).  For small scenes (Cornell-box class)
-   this saturates the VPU/MXU with zero divergence and is the fastest path.
-2. **Threaded-BVH walk** — stackless skip-link traversal
-   (:mod:`mitsuba_im_tpu.accel.bvh`) as a vectorized ``lax.while_loop``:
-   per-lane state is one node index; leaves run a statically-unrolled
-   Moeller-Trumbore test.  Used when the primitive count crosses
-   ``BRUTE_FORCE_MAX``.
+1. **Brute-force broadcast** -- every ray tests every primitive as dense
+   ``(rays, prims)`` Moeller-Trumbore planes that XLA fuses with their
+   min-reduction.  Used up to ``BRUTE_FORCE_MAX`` triangles (Cornell-box
+   class scenes).
+2. **Two-level hierarchy** (:mod:`mitsuba_im_tpu.accel.hierarchy`) -- the
+   large-scene path on accelerators, and for instanced scenes everywhere.
+3. **Threaded-BVH walk** -- stackless skip-link traversal
+   (:mod:`mitsuba_im_tpu.accel.bvh`) as a vectorized ``lax.while_loop``;
+   large scenes take it on the CPU backend.
 
-Both return identical :class:`Hit` records; analytic spheres/disks are always
+All return identical :class:`Hit` records; analytic spheres/disks are always
 tested brute-force (their counts are tiny).
 """
 from __future__ import annotations
@@ -33,21 +35,32 @@ from ..scene.geometry import (
 )
 from .bvh import FlatBVH
 
-BRUTE_FORCE_MAX = 512  # tris; above this the BVH path is used
+BRUTE_FORCE_MAX = 512  # tris; above this the hierarchy or BVH is used
 BIG = 3.0e37
+IBIG = 2 ** 31 - 1
 
 
-def _use_pallas() -> bool:
-    """Pallas kernels on real TPU; interpretable jnp path elsewhere.
+def _brute(geom: Geometry, bvh, clusters) -> bool:
+    """Small (or accelerator-less) soups are tested brute-force; instanced
+    hierarchies never are: their flat tables hold BLAS-local geometry."""
+    return not _indirect(clusters) and (
+        (bvh is None and clusters is None) or geom.n_tris <= BRUTE_FORCE_MAX)
 
-    Respects ``jax.default_device(cpu)`` overrides so the TPU-vs-CPU
-    parity gate (``parity_check.py``) can trace the CPU variant from a
-    TPU-backed process (Pallas has no CPU lowering outside interpret
-    mode)."""
+
+def _use_hierarchy(bvh, clusters) -> bool:
+    """Large scenes march the hierarchy unless a BVH was asked for and the
+    computation is placed on the CPU backend (where the threaded walk is
+    the tested reference).  Respects ``jax.default_device(cpu)`` so the
+    device-vs-CPU parity check can trace the CPU variant from a GPU
+    process."""
+    if clusters is None:
+        return False
+    if _indirect(clusters) or bvh is None:
+        return True
     dev = jax.config.jax_default_device
-    if dev is not None:
-        return getattr(dev, "platform", None) not in ("cpu",)
-    return jax.default_backend() not in ("cpu",)
+    platform = (getattr(dev, "platform", None) if dev is not None
+                else jax.default_backend())
+    return platform != "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -132,25 +145,12 @@ def intersect_brute(geom: Geometry, o, d, tmin, tmax) -> Hit:
     tmin_b = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))[:, None]
     tmax_b = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))[:, None]
 
-    if _use_pallas():
-        from . import pallas_intersect as pk
-
-        # intersection geometry is detached (visibility is not
-        # differentiated; shading recombines p = o + t*d outside)
-        sg = jax.lax.stop_gradient
-        tbest, tu_b, tv_b, ti, tvalid = pk.closest_tris(
-            pk.replicate_tris(geom), sg(o), sg(d), sg(tmin), sg(tmax)
-        )
-        tri_pack = (ti, tbest, tvalid, None, None)
-        tri_uv = (tu_b, tv_b)
-    else:
-        th, tt, tu, tv = _moeller_trumbore(
-            o_b, d_b, geom.tri_p0[None], geom.tri_e1[None], geom.tri_e2[None],
-            tmin_b, tmax_b,
-        )
-        ti, tbest, tvalid = _closest_from_masked(tt, th)
-        tri_pack = (ti, tbest, tvalid, tu, tv)
-        tri_uv = None
+    th, tt, tu, tv = _moeller_trumbore(
+        o_b, d_b, geom.tri_p0[None], geom.tri_e1[None], geom.tri_e2[None],
+        tmin_b, tmax_b,
+    )
+    ti, tbest, tvalid = _closest_from_masked(tt, th)
+    tri_pack = (ti, tbest, tvalid, tu, tv)
 
     sh, st = _sphere_test(
         o_b, d_b, geom.sph_center[None], geom.sph_radius[None], tmin_b, tmax_b
@@ -163,11 +163,10 @@ def intersect_brute(geom: Geometry, o, d, tmin, tmax) -> Hit:
     )
     di, dbest, dvalid = _closest_from_masked(dt, dh)
 
-    return _merge_hits(geom, tri_pack, (si, sbest, svalid), (di, dbest, dvalid),
-                       tri_uv=tri_uv)
+    return _merge_hits(geom, tri_pack, (si, sbest, svalid), (di, dbest, dvalid))
 
 
-def _merge_hits(geom, tri, sph, disk, tri_uv=None):
+def _merge_hits(geom, tri, sph, disk):
     ti, tbest, tvalid, tu_all, tv_all = tri
     si, sbest, svalid = sph
     di, dbest, dvalid = disk
@@ -183,14 +182,8 @@ def _merge_hits(geom, tri, sph, disk, tri_uv=None):
         jnp.where(tbest == best, KIND_TRI, jnp.where(sbest == best, KIND_SPHERE, KIND_DISK)),
     ).astype(Int)
     prim = jnp.where(kind == KIND_TRI, ti, jnp.where(kind == KIND_SPHERE, si, di))
-    if tri_uv is not None:
-        u, v = tri_uv
-    elif tu_all is not None:
-        u = jnp.take_along_axis(tu_all, ti[..., None], axis=-1)[..., 0]
-        v = jnp.take_along_axis(tv_all, ti[..., None], axis=-1)[..., 0]
-    else:
-        u = jnp.zeros_like(best)
-        v = jnp.zeros_like(best)
+    u = jnp.take_along_axis(tu_all, ti[..., None], axis=-1)[..., 0]
+    v = jnp.take_along_axis(tv_all, ti[..., None], axis=-1)[..., 0]
     u = jnp.where(kind == KIND_TRI, u, 0.0)
     v = jnp.where(kind == KIND_TRI, v, 0.0)
     from ..core.gather import gather_rows
@@ -299,8 +292,8 @@ def _dispatch_clusters(clusters, o, d, tmin, tmax, any_hit=False,
     from .hierarchy import Hierarchy, intersect_hierarchy, PROLOGUE
 
     if isinstance(clusters, Hierarchy):
-        # the full-width prologue only pays off on coherent camera bundles
-        # (measured: +15% coherent, -15% incoherent); callers flag them
+        # the full-width prologue is meant for coherent camera bundles;
+        # callers flag them
         return intersect_hierarchy(clusters, o, d, tmin, tmax,
                                    any_hit=any_hit, active=active,
                                    prologue=PROLOGUE if coherent else 0)
@@ -318,21 +311,19 @@ def _indirect(clusters) -> bool:
 def intersect(geom: Geometry, o, d, tmin, tmax, bvh: FlatBVH | None = None,
               clusters=None, active=None, coherent=False) -> Hit:
     """Closest-hit entry point: brute force for small soups; on big scenes
-    cluster marching (TPU) or the threaded BVH (CPU); analytic prims always
-    tested."""
-    if not _indirect(clusters) and (
-            (bvh is None and clusters is None)
-            or geom.n_tris <= BRUTE_FORCE_MAX):
-        return intersect_brute(geom, o, d, tmin, tmax)
-
+    the hierarchy or the threaded BVH (see ``_use_hierarchy``); analytic
+    prims always tested."""
+    with jax.named_scope("closest_hit"):
+        if _brute(geom, bvh, clusters):
+            return intersect_brute(geom, o, d, tmin, tmax)
+        if _use_hierarchy(bvh, clusters):
+            sg = jax.lax.stop_gradient
+            st = _dispatch_clusters(clusters, sg(o), sg(d), sg(tmin),
+                                    sg(tmax), active=active,
+                                    coherent=coherent)
+        else:
+            st = intersect_bvh(bvh, geom, o, d, tmin, tmax)
     R = o.shape[0]
-    if clusters is not None and (_use_pallas() or _indirect(clusters)
-                                 or bvh is None):
-        sg = jax.lax.stop_gradient
-        st = _dispatch_clusters(clusters, sg(o), sg(d), sg(tmin), sg(tmax),
-                                active=active, coherent=coherent)
-    else:
-        st = intersect_bvh(bvh, geom, o, d, tmin, tmax)
     ti, tbest, tvalid = st["prim"], st["t"], st["found"]
     # recompute u,v from stored
     o_b = o[:, None, :]
@@ -432,35 +423,89 @@ def _disk_best_v(geom, o, d, tmin, tmax):
     return best_i, best_t, best_t < BIG
 
 
+def mt_planes(o, d, p0, e1, e2):
+    """Componentwise Moeller-Trumbore on broadcasting 2-D planes.
+
+    o, d, p0, e1, e2: 3-tuples of components, rays as ``(N, 1)`` columns and
+    triangles as ``(1, P)`` rows or ``(N, P)`` planes.  Returns (inside, t,
+    u, v): ``inside`` tests the determinant and barycentrics, the caller
+    adds its own t range.  2-D planes of scalar math (not ``(N, P, 3)``
+    intermediates) fuse with the reduction that consumes them."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = jnp.abs(det) > 1e-12
+    inv_det = jnp.where(ok, 1.0 / jnp.where(det == 0, 1.0, det), 0.0)
+    tvx = ox - p0[0]
+    tvy = oy - p0[1]
+    tvz = oz - p0[2]
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    return ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0), t, u, v
+
+
+def _tri_planes(geom, o, d):
+    """Every ray (V3 of (N,)) against every triangle: (N, P) planes."""
+    col = lambda w: (w.x[:, None], w.y[:, None], w.z[:, None])
+    row = lambda a: (a[None, :, 0], a[None, :, 1], a[None, :, 2])
+    return mt_planes(col(o), col(d), row(geom.tri_p0), row(geom.tri_e1),
+                     row(geom.tri_e2))
+
+
+def _tri_best_v(geom, o, d, tmin, tmax):
+    """Closest triangle per ray: (idx, t, u, v, found), ties to the lowest
+    index like ``intersect_brute``."""
+    hit, t, u, v = _tri_planes(geom, o, d)
+    hit = hit & (t > tmin[:, None]) & (t < tmax[:, None])
+    tm = jnp.where(hit, t, BIG)
+    tbest = jnp.min(tm, axis=1)
+    lane = jax.lax.broadcasted_iota(Int, tm.shape, 1)
+    idx = jnp.min(jnp.where(tm == tbest[:, None], lane, IBIG), axis=1)
+    pick = lane == idx[:, None]
+    ub = jnp.sum(jnp.where(pick, u, 0.0), axis=1)
+    vb = jnp.sum(jnp.where(pick, v, 0.0), axis=1)
+    found = tbest < BIG
+    return jnp.where(found, idx, 0), tbest, ub, vb, found
+
+
+def _tri_any_v(geom, o, d, tmin, tmax):
+    hit, t, _, _ = _tri_planes(geom, o, d)
+    hit = hit & (t > tmin[:, None]) & (t < tmax[:, None])
+    return jnp.any(hit, axis=1)
+
+
 def intersect_v(geom: Geometry, o, d, tmin, tmax, bvh: FlatBVH | None = None,
                 clusters=None, active=None, coherent=False) -> Hit:
     """Closest-hit over component-SoA rays (o, d: V3 of flat (N,) arrays).
 
-    Canonical hot-path entry: on TPU the ray components feed the Pallas
-    kernel with zero relayout; CPU / large-scene paths stack to (N,3) and
-    reuse the generic code (correctness only).  ``active`` masks lanes off
-    on the hierarchy path (sparse bounce wavefronts); ``coherent`` flags
-    camera-bundle workloads (enables the hierarchy's full-width prologue)."""
+    Canonical hot-path entry: brute-force scenes stay in component form
+    end to end; large-scene paths stack to (N,3) for the accelerator walk.
+    ``active`` masks lanes off on the hierarchy path (sparse bounce
+    wavefronts); ``coherent`` flags camera-bundle workloads (enables the
+    hierarchy's full-width prologue)."""
     from ..core import v3 as v
 
-    small = geom.n_tris <= BRUTE_FORCE_MAX and not _indirect(clusters)
-    if not (_use_pallas() and small and clusters is None):
+    if not _brute(geom, bvh, clusters):
         return intersect(geom, o.to_array(), d.to_array(), tmin, tmax,
                          bvh=bvh, clusters=clusters, active=active,
                          coherent=coherent)
 
-    from . import pallas_intersect as pk
-
     R = o.x.shape[0]
     tmin = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))
     tmax = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))
-    sg = jax.lax.stop_gradient
-    sgv = lambda w: v.V3(sg(w.x), sg(w.y), sg(w.z))
-    tbest, tu, tv, ti, tvalid = pk.closest_tris_v(
-        pk.replicate_tris(geom), sgv(o), sgv(d), sg(tmin), sg(tmax)
-    )
-    si, sbest, svalid = _sphere_best_v(geom, o, d, tmin, tmax)
-    di, dbest, dvalid = _disk_best_v(geom, o, d, tmin, tmax)
+    with jax.named_scope("closest_hit"):
+        ti, tbest, tu, tv, tvalid = _tri_best_v(geom, o, d, tmin, tmax)
+        si, sbest, svalid = _sphere_best_v(geom, o, d, tmin, tmax)
+        di, dbest, dvalid = _disk_best_v(geom, o, d, tmin, tmax)
 
     tbest = jnp.where(tvalid, tbest, BIG)
     best = jnp.minimum(jnp.minimum(tbest, sbest), dbest)
@@ -496,25 +541,17 @@ def intersect_v(geom: Geometry, o, d, tmin, tmax, bvh: FlatBVH | None = None,
 def occluded_v(geom: Geometry, o, d, tmin, tmax, bvh: FlatBVH | None = None,
                clusters=None, active=None) -> jax.Array:
     """Any-hit over component-SoA rays."""
-    from ..core import v3 as v
-
-    small = geom.n_tris <= BRUTE_FORCE_MAX and not _indirect(clusters)
-    if not (_use_pallas() and small and clusters is None):
+    if not _brute(geom, bvh, clusters):
         return occluded(geom, o.to_array(), d.to_array(), tmin, tmax,
                         bvh=bvh, clusters=clusters, active=active)
-
-    from . import pallas_intersect as pk
 
     R = o.x.shape[0]
     tmin = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))
     tmax = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))
-    sg = jax.lax.stop_gradient
-    sgv = lambda w: v.V3(sg(w.x), sg(w.y), sg(w.z))
-    blocked = pk.anyhit_tris_v(
-        pk.replicate_tris(geom), sgv(o), sgv(d), sg(tmin), sg(tmax)
-    )
-    _, _, sh = _sphere_best_v(geom, o, d, tmin, tmax)
-    _, _, dh = _disk_best_v(geom, o, d, tmin, tmax)
+    with jax.named_scope("any_hit"):
+        blocked = _tri_any_v(geom, o, d, tmin, tmax)
+        _, _, sh = _sphere_best_v(geom, o, d, tmin, tmax)
+        _, _, dh = _disk_best_v(geom, o, d, tmin, tmax)
     return blocked | sh | dh
 
 
@@ -522,47 +559,24 @@ def occluded(geom: Geometry, o, d, tmin, tmax, bvh: FlatBVH | None = None,
              clusters=None, active=None) -> jax.Array:
     """Any-hit (shadow ray) query -> bool per ray."""
     R = o.shape[0]
-    if clusters is not None and (_indirect(clusters) or (
-            geom.n_tris > BRUTE_FORCE_MAX
-            and (_use_pallas() or bvh is None))):
-        sg = jax.lax.stop_gradient
-        st = _dispatch_clusters(clusters, sg(o), sg(d), sg(tmin), sg(tmax),
-                                any_hit=True, active=active)
-        blocked = st["found"]
-        o_b, d_b = o[:, None, :], d[:, None, :]
-        tmin_b = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))[:, None]
-        tmax_b = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))[:, None]
-        sh, _ = _sphere_test(
-            o_b, d_b, geom.sph_center[None], geom.sph_radius[None], tmin_b, tmax_b
-        )
-        dh, _ = _disk_test(
-            o_b, d_b, geom.disk_center[None], geom.disk_n[None], geom.disk_s[None],
-            geom.disk_t[None], geom.disk_radius[None], tmin_b, tmax_b,
-        )
-        return blocked | jnp.any(sh, axis=-1) | jnp.any(dh, axis=-1)
-    if bvh is None or geom.n_tris <= BRUTE_FORCE_MAX:
-        o_b, d_b = o[:, None, :], d[:, None, :]
-        tmin_b = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))[:, None]
-        tmax_b = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))[:, None]
-        if _use_pallas():
-            from . import pallas_intersect as pk
-
-            sg = jax.lax.stop_gradient
-            blocked = pk.anyhit_tris(
-                pk.replicate_tris(geom), sg(o), sg(d), sg(tmin), sg(tmax)
-            )
-        else:
+    o_b, d_b = o[:, None, :], d[:, None, :]
+    tmin_b = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))[:, None]
+    tmax_b = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))[:, None]
+    with jax.named_scope("any_hit"):
+        if _brute(geom, bvh, clusters):
             th, *_ = _moeller_trumbore(
-                o_b, d_b, geom.tri_p0[None], geom.tri_e1[None], geom.tri_e2[None],
-                tmin_b, tmax_b,
+                o_b, d_b, geom.tri_p0[None], geom.tri_e1[None],
+                geom.tri_e2[None], tmin_b, tmax_b,
             )
             blocked = jnp.any(th, axis=-1)
-    else:
-        st = intersect_bvh(bvh, geom, o, d, tmin, tmax, any_hit=True)
-        blocked = st["found"]
-        o_b, d_b = o[:, None, :], d[:, None, :]
-        tmin_b = jnp.broadcast_to(jnp.asarray(tmin, Float), (R,))[:, None]
-        tmax_b = jnp.broadcast_to(jnp.asarray(tmax, Float), (R,))[:, None]
+        elif _use_hierarchy(bvh, clusters):
+            sg = jax.lax.stop_gradient
+            blocked = _dispatch_clusters(clusters, sg(o), sg(d), sg(tmin),
+                                         sg(tmax), any_hit=True,
+                                         active=active)["found"]
+        else:
+            blocked = intersect_bvh(bvh, geom, o, d, tmin, tmax,
+                                    any_hit=True)["found"]
     sh, _ = _sphere_test(
         o_b, d_b, geom.sph_center[None], geom.sph_radius[None], tmin_b, tmax_b
     )

@@ -7,7 +7,7 @@ the machinery behind the reference's manifold perturbation mutator
 chain of specular vertices, move the chain so the specular constraints
 stay satisfied after one endpoint is perturbed.
 
-TPU-native shape: instead of one Newton solve per mutation on one thread,
+Wavefront shape: instead of one Newton solve per mutation on one thread,
 ``manifold_walk`` runs B independent walks in lockstep — every Newton
 iteration is one batched constraint evaluation, one batched (2K x 2K)
 linear solve (``jnp.linalg.solve`` over the ensemble), and one batched

@@ -10,7 +10,7 @@ re-evaluate chains through this, so light-tracing-dominant features
 (caustics seen through glass, strong indirect) are inside the MCMC
 strategy space.
 
-TPU-native shape: the sampler state is the (N, B, 4) primary-sample table
+Wavefront shape: the sampler state is the (N, B, 4) primary-sample table
 of a lockstep chain ensemble; one call evaluates all strategies for every
 chain as fused wavefronts (reusing :func:`integrators.bdpt.bdpt_sample`'s
 static-depth SoA machinery).  The scalar Metropolis target is the summed

@@ -334,7 +334,7 @@ def resolve(table: BSDFTable, tex: TextureTable, bsdf_id: jax.Array,
     evaluates the convex combination deterministically instead).
 
     All table columns ride in ONE bundled row lookup (select chain on small
-    tables) — per-column dynamic gathers are pathologically slow on TPU.
+    tables) rather than one gather per column.
     """
     from ..core.gather import RowBundle
 

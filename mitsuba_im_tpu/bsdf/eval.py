@@ -10,8 +10,8 @@ compose exactly like the reference path tracer (``path.cpp:119-290``).
 Each lobe family cites its reference plugin in the function docstring.
 
 Canonical implementations are component-SoA (:class:`LaneParams3` with V3
-spectra, V3 directions) — on TPU every op then runs at full 8x128 tile
-density with no cross-lane reduces.  The ``(..., 3)``-array API at the
+spectra, V3 directions) — every op is then a flat elementwise op with no
+reduce over a trailing axis of 3.  The ``(..., 3)``-array API at the
 bottom wraps them for not-yet-migrated callers.
 """
 from __future__ import annotations

@@ -621,8 +621,8 @@ def compute_normalization(pat: WeavePattern, n_samples: int = 10000,
                                     V3(wox, woy, woz),
                                     initialization=True))
 
-    # one fused CPU-jit call: scene build must not pay per-op dispatch
-    # latency on a remote TPU backend
+    # one fused jit call on the host CPU: a scene-build-time constant, so
+    # it neither dispatches op by op nor occupies the device
     wi = cos_hemi(us[0], us[1])
     wo = cos_hemi(us[2], us[3])
     with jax.default_device(jax.devices("cpu")[0]):

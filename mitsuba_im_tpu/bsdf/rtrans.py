@@ -11,7 +11,7 @@ and its hemispherical (diffuse) average; ``roughplastic.cpp:373-382`` and
 ``roughcoating.cpp`` interpolate them for energy-conserving diffuse terms
 and for specular/diffuse lobe-selection probabilities.
 
-TPU-native design: instead of the reference's cubic-interpolated spline file
+Wavefront design: instead of the reference's cubic-interpolated spline file
 (``data/microfacet/*.dat``), a small dense grid — (2 dists, 2 eta blocks,
 NE etas, NA alphas, NT angles) — generated here by vectorized numpy QMC
 integration (visible-normal / NDF importance sampling, Walter 2007 weights),

@@ -45,15 +45,19 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="semicolon-separated render nodes: host[:port] or "
                          "'exec:CMD' (e.g. exec:ssh host python -m "
                          "mitsuba_im_tpu.cli.mtssrv -ls); the -c cluster "
-                         "flag analog (mitsuba.cpp:71-73)")
+                         "flag analog (mitsuba.cpp:71-73).  Each exec: node "
+                         "is a new JAX process: a local one on a one-GPU "
+                         "host fails for want of device memory while this "
+                         "process also renders (--local-worker), so point "
+                         "exec: at other hosts or pass --no-local-worker")
     ap.add_argument("--local-worker", dest="local_worker",
                     action=argparse.BooleanOptionalAction, default=True,
                     help="with --nodes: also render on this process")
     ap.add_argument("-j", dest="jobs", type=int, default=1,
-                    help="scene-build pipelining depth: load/compile the "
-                         "next scenes on host threads while the chip "
-                         "renders (mitsuba.cpp -j analog; the TPU itself "
-                         "is exclusive, so device passes stay serialized)")
+                    help="scene-build pipelining depth: load the next "
+                         "scenes on host threads while the device renders "
+                         "(mitsuba.cpp -j analog; device passes stay "
+                         "serialized in this one process)")
     ap.add_argument("-q", dest="quiet", action="store_true")
     ap.add_argument("-v", dest="verbose", action="store_true")
     ap.add_argument("--width", type=int, default=None)
@@ -63,6 +67,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    from ..runtime import enable_compile_cache
+
+    enable_compile_cache()
     params = {}
     for d in args.defines:
         if "=" not in d:
@@ -71,7 +78,7 @@ def main(argv=None) -> int:
         params[k] = v
 
     from ..scene.xml import load_scene
-    from ..render.job import render_film, develop, save_render
+    from ..render.job import render_film, develop, save_render, FILM_INTEGRATORS
     from ..film.film import make_film
     from ..core import statistics as stats
     from ..core.logger import add_stream_appender, set_log_level, EDebug, EInfo
@@ -151,9 +158,7 @@ def main(argv=None) -> int:
                 include_local=args.local_worker,
                 log=(lambda *_: None) if args.quiet else
                     (lambda *a: print(*a, flush=True)))
-        elif settings.integrator in ("ptracer", "pssmlt", "erpt", "sppm",
-                                     "ppm", "bdpt", "vpl", "adaptive",
-                                     "multichannel", "irrcache"):
+        elif settings.integrator not in FILM_INTEGRATORS:
             from ..render.job import render as _render
 
             img = _render(scene, settings)

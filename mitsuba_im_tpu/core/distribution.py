@@ -4,9 +4,8 @@ Reference: ``/root/reference/include/mitsuba/core/pmf.h:35``
 (DiscreteDistribution) and the hierarchical 2D CDF inside the envmap emitter
 (``/root/reference/src/emitters/envmap.cpp``).
 
-TPU redesign note: per-lane CDF binary search is a ~20-iteration
-gather-in-a-while-loop on 8x128 vector lanes; profiling the 1M-triangle
-envmap bench showed vmap(searchsorted) was ~40% of the whole render pass.
+Redesign note: per-lane CDF binary search is a ~20-iteration
+gather-in-a-while-loop over the wavefront.
 ``Distribution2D`` therefore carries Walker/Vose **alias tables** (built in
 native C++ at scene build, exact per-cell probabilities) and samples in
 O(1): two gathers and a compare per level, with sample reuse for the
@@ -76,7 +75,7 @@ class Distribution1D:
         """Sample entry index; returns (index, pmf[index])."""
         n = self.pmf.shape[0]
         if n <= 64:
-            # compare-sum beats per-lane binary search on TPU vector lanes
+            # compare-sum: no per-lane binary search over tiny tables
             idx = jnp.clip(
                 jnp.sum(self.cdf[1:-1][None] <= u[..., None], axis=-1), 0, n - 1
             ).astype(jnp.int32)

@@ -1,8 +1,7 @@
-"""TPU-friendly row lookup from small tables.
+"""Row lookup from small tables.
 
-XLA lowers per-lane dynamic gathers on TPU to slow custom fusions; for the
-renderer's small entity tables (BSDFs, emitters, shapes) a fused
-select-chain is far cheaper, and bundling all columns of a table into one
+For the renderer's small entity tables (BSDFs, emitters, shapes) a lookup
+is a fused select-chain, and bundling all columns of a table into one
 matrix amortizes one lookup across every attribute.  Large tables (BVH
 nodes, texture atlas) keep native gathers.
 """

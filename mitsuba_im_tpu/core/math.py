@@ -3,7 +3,7 @@
 Capability parity with the reference math layer
 (``/root/reference/include/mitsuba/core/{vector,normal,frame}.h``), expressed
 as pure functions over batched arrays: every op vectorizes over leading batch
-dimensions so the whole wavefront runs on the VPU's 8x128 lanes.
+dimensions so the whole wavefront runs as one batch.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ def dot(a: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def cross(a: jax.Array, b: jax.Array) -> jax.Array:
-    # manual components: jnp.cross's roll/slice lowering is slow on TPU
+    # manual components instead of jnp.cross's roll/slice lowering
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     return jnp.stack(

@@ -4,15 +4,15 @@ Capability analog of the reference's QMC layer
 (``/root/reference/include/mitsuba/core/qmc.h`` radical inverses,
 ``src/samplers/sobolseq.h`` Sobol sequence engine, ``halton.cpp`` /
 ``hammersley.cpp`` / ``sobol.cpp`` plugins).  The reference ships 108k LoC
-of tabulated Joe-Kuo direction numbers; the TPU build *generates* direction
+of tabulated Joe-Kuo direction numbers; this build *generates* direction
 numbers at import time from brute-forced primitive polynomials over GF(2)
 (seconds of host work, zero data tables) and regains sample quality through
 hash-based Owen scrambling (Burley, "Practical Hash-based Owen Scrambling",
 JCGT 2020), which decorrelates dimension pairs far better than unscrambled
 table choice does.
 
-Everything device-side is uint32 bit math — maps directly onto the TPU
-vector ALU with static loop unrolls (no gathers, no dynamic shapes).
+Everything device-side is uint32 bit math with static loop unrolls (no
+gathers, no dynamic shapes).
 """
 from __future__ import annotations
 

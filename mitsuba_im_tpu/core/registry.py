@@ -1,4 +1,4 @@
-"""Plugin registry: the TPU analog of the reference plugin manager.
+"""Plugin registry: the wavefront analog of the reference plugin manager.
 
 The reference discovers ``.so`` plugins per category by scanning binaries for
 marker symbols and instantiates them from ``Properties``

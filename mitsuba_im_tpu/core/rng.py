@@ -2,13 +2,14 @@
 
 The reference uses a per-thread SFMT19937 stream cloned per core
 (``/root/reference/include/mitsuba/core/random.h:88``,
-``renderjob.cpp:57-68``).  The TPU-native design replaces stateful streams
+``renderjob.cpp:57-68``).  The Wavefront design replaces stateful streams
 with a *stateless counter-based hash*: every random draw is a pure function
 of ``(seed, pixel_index, sample_index, dimension)``.  This gives
 
 - bitwise determinism independent of device count and batch partitioning,
 - exact path-replay for backprop (re-derive the same numbers, store nothing),
-- trivial reimplementation inside Pallas kernels (integer ops only).
+- trivial reimplementation inside a hand-written kernel (integer ops
+  only).
 
 Hash: PCG4D (Jarzynski & Olano, JCGT 2020) — public-domain 4-word mix used
 widely in production GPU renderers.
@@ -159,7 +160,7 @@ def _lds_pair(s: SamplerState, dim0: jax.Array) -> jax.Array:
     reuses the (0,2) point set with an independent hash-based Owen scramble
     keyed by (pixel, seed, pair index).  Nested uniform scrambling preserves
     the (0,2)-net's elementary intervals, so per-pair stratification is
-    exact while cross-pair correlation is broken — the TPU-native stand-in
+    exact while cross-pair correlation is broken — the stand-in
     for the reference's tabulated Joe-Kuo Sobol engine (sobolseq.h) that
     needs no data tables and no dynamic gathers.
 
@@ -240,8 +241,8 @@ def next_block4(s: SamplerState) -> tuple[SamplerState, jax.Array]:
 
 # ---------------------------------------------------------------------------
 # Component-SoA sampler (canonical for the wavefront hot path): the 4-word
-# state rides as four flat (N,) arrays so every hash op runs at full
-# 8x128 tile density (an (N, 4) array tiles as T(4,128): half-empty tiles).
+# state rides as four flat (N,) arrays so every hash op is a flat
+# elementwise op.
 # ---------------------------------------------------------------------------
 
 def pcg4d_words(x, y, z, w):

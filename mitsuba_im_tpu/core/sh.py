@@ -5,7 +5,7 @@ Parity target: ``/root/reference/include/mitsuba/core/shvector.h:486``
 with projection from spherical functions, z-rotation-closed-form + band
 rotation, and hierarchical sample warping.
 
-TPU shape: coefficients are flat (n_bands^2,) arrays; evaluation is a
+Wavefront shape: coefficients are flat (n_bands^2,) arrays; evaluation is a
 vectorized polynomial in (x, y, z) traced under jit; projection uses a
 lat-long quadrature grid (device-side reduction).  Rotation about z is the
 closed-form cos/sin mixing the reference uses; arbitrary rotations compose

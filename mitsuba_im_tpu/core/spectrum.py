@@ -2,7 +2,7 @@
 
 The reference defaults to ``SPECTRUM_SAMPLES == 3`` (linear RGB;
 ``/root/reference/include/mitsuba/core/spectrum.h:25-28``) and that is the
-mode the TPU build implements: ``Spectrum`` is a ``(..., 3)`` float32 array
+mode this build implements: ``Spectrum`` is a ``(..., 3)`` float32 array
 in linear Rec.709 RGB.  Conversions, luminance, sRGB transfer, and blackbody
 spectra (reduced to RGB) provide parity with ``spectrum.cpp`` capabilities.
 """
@@ -44,11 +44,13 @@ _XYZ2RGB = np.linalg.inv(_RGB2XYZ)
 
 
 def rgb_to_xyz(rgb: jax.Array) -> jax.Array:
-    return rgb @ jnp.asarray(_RGB2XYZ.T, Float)
+    return jnp.matmul(rgb, jnp.asarray(_RGB2XYZ.T, Float),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def xyz_to_rgb(xyz: jax.Array) -> jax.Array:
-    return xyz @ jnp.asarray(_XYZ2RGB.T, Float)
+    return jnp.matmul(xyz, jnp.asarray(_XYZ2RGB.T, Float),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def srgb_to_linear(c):

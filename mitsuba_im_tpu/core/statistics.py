@@ -7,7 +7,7 @@ Capability parity with the reference statistics layer
 category, formatted report at exit or on demand, and a console progress
 bar with throughput/ETA.
 
-TPU reframe: the reference pads counters to cache lines so threads don't
+Wavefront reframe: the reference pads counters to cache lines so threads don't
 false-share; here the hot loop is a jit-compiled program, so counters are
 *derived* host-side from the statically known wavefront shapes (rays per
 pass, lanes per launch) and from device scalars fetched lazily after each

@@ -5,7 +5,7 @@ per-channel keyframed translation / rotation (quaternion slerp) / scale
 tracks composed into a time-evaluable rigid transform, used for motion blur
 (4D kd-tree shapes) and the ``motion`` AOV integrator (``misc/motion.cpp``).
 
-TPU shape: a track is a pair of (times (K,), values (K, ...)) numpy arrays
+Wavefront shape: a track is a pair of (times (K,), values (K, ...)) numpy arrays
 evaluated host-side at scene-build / frame time (animation evaluation is a
 per-frame scalar op, not a per-ray op — the reference also evaluates
 ``AnimatedTransform::eval`` once per ray *time*, which for a single shutter

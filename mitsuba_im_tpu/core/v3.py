@@ -1,13 +1,10 @@
-"""Component-SoA 3-vectors: the TPU-native layout for wavefront math.
+"""Component-SoA 3-vectors: the layout of the wavefront math.
 
-Why this exists: XLA:TPU tiles an ``(N, 3)`` array as T(4,128) (75% density)
-and an ``(N, 1)`` array as T(1,128) (every row burns a full 8x128 issue
-slot), and a dot product over the trailing dim of 3 lowers to a cross-lane
-reduce fusion — profiled at ~5.5 ms/pass on the Cornell bench, ~25% of the
-whole pass.  Storing each component as a flat ``(N,)`` array (T(1024) =
-full-density tiling) turns every vector op into fused full-width
-elementwise work: a dot is three multiplies and two adds, no reduce, no
-degenerate tiles.  This module is the canonical math layer for the hot
+Why this exists: with an ``(N, 3)`` array every dot product is a reduce
+over a trailing axis of 3 and every component access a strided slice.
+Storing each component as a flat ``(N,)`` array turns every vector op into
+fused full-width elementwise work: a dot is three multiplies and two adds,
+no reduce.  This module is the canonical math layer for the hot
 path; ``core.math`` keeps the ``(..., 3)`` API as a compatibility wrapper
 for not-yet-migrated callers.
 

@@ -5,7 +5,7 @@ directional, collimated, constant, envmap w/ 2D-CDF importance sampling) and
 the scene-level direct sampling API (``src/librender/scene.cpp:860-884``
 ``sampleEmitterDirect`` / ``pdfEmitterDirect``).
 
-Design notes (TPU-first):
+Design notes:
 - emitter selection is a Distribution1D over per-emitter weights (uniform by
   default, like the reference's equal sampling weights);
 - area emitters sample *uniformly by area* over their shape (triangle CDF /
@@ -187,7 +187,7 @@ def build_emitters(records: list[dict], geom_host: dict, bsphere) -> EmitterTabl
 # ---------------------------------------------------------------------------
 
 def _env_uv_from_dir(em: EmitterTable, d_world):
-    d = d_world @ em.env_to_local.T
+    d = jnp.matmul(d_world, em.env_to_local.T, precision=jax.lax.Precision.HIGHEST)
     u = jnp.arctan2(d[..., 0], -d[..., 2]) * (0.5 / jnp.pi)
     u = jnp.where(u < 0, u + 1.0, u)
     v = m.safe_acos(d[..., 1]) / jnp.pi
@@ -199,7 +199,7 @@ def _env_dir_from_uv(em: EmitterTable, uv):
     theta = uv[..., 1] * jnp.pi
     st, ct = jnp.sin(theta), jnp.cos(theta)
     d_local = jnp.stack([st * jnp.sin(phi), ct, -st * jnp.cos(phi)], axis=-1)
-    return d_local @ em.env_to_world.T
+    return jnp.matmul(d_local, em.env_to_world.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def _env_lookup(em: EmitterTable, uv, scale):
@@ -381,7 +381,7 @@ def _sample_area_position(em: EmitterTable, geom: Geometry, eid, u2, eb):
 
     Only the area-kinds present in the scene (static ``used_area_kinds``)
     are compiled; triangle CDF inversion uses a vectorized compare-sum
-    (cheaper than a per-lane binary search on the VPU for typical emissive
+    (cheaper than a per-lane binary search for typical emissive
     triangle counts)."""
     kinds = em.used_area_kinds or (AK_TRIMESH,)
     kind = eb["area_kind"]

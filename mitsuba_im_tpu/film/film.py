@@ -4,7 +4,7 @@ Reference: ``include/mitsuba/render/film.h:37``, the filtered ImageBlock
 splat (``imageblock.h:161-221``), the fork's atomic shared-framebuffer splat
 (``imageblock.h:222``), and the rfilter plugins (``src/rfilters/``).
 
-TPU design: the film is an ``(H, W, 4)`` array (RGB + filter weight).  Each
+Wavefront design: the film is an ``(H, W, 4)`` array (RGB + filter weight).  Each
 sample splats to a static (2r)x(2r) neighborhood via scatter-add — the
 functional analog of the 128-bit-CAS atomic splat; XLA lowers it to a sorted
 segment-sum.  Box-filter samples hit exactly one pixel (fast path).

@@ -4,8 +4,7 @@ The analog of the reference ``Resampler`` (``include/mitsuba/core/
 rfilter.h:474``): separable filtered rescaling used for image utilities and
 MIP-type preprocessing.  Host-side numpy (it runs at scene-build/utility
 time); weights are precomputed per output column/row exactly like the
-reference's cached weight tables, then applied as two matrix products —
-which is also how you'd feed it to the MXU if it ever moves on-device.
+reference's cached weight tables, then applied as two matrix products.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Out-of-core tiled film: bounded-memory accumulation + streamed EXR.
 
 The analog of ``/root/reference/src/films/tiledhdrfilm.cpp:101`` (tiles
-spill to disk through the OpenEXR tiled interface as workers finish).  TPU
-redesign: the image renders in horizontal *bands* — each band is a small
+spill to disk through the OpenEXR tiled interface as workers finish).
+Redesign: the image renders in horizontal *bands* — each band is a small
 device film covering ``band_rows`` rows plus a filter-radius margin; after
 its passes finish, the band accumulates into a host numpy memmap and its
 device buffer is reused.  Develop streams memmap rows straight into the

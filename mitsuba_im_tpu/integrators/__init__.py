@@ -104,7 +104,7 @@ def _irrcache(props: Properties, ctx=None):
     res = props.get_int("resolution", 14)  # hemisphere elevational strata
     ip = dict(
         quality=props.get_float("quality", 1.0),
-        # record-placement pixel stride (TPU-specific: camera-grid placement
+        # record-placement pixel stride (this build: camera-grid placement
         # replaces the reference's on-demand octree insertion)
         resolution=props.get_int("stride", 4),
         irr_samples=min(3 * res * res, 1024),

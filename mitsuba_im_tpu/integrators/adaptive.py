@@ -2,7 +2,7 @@
 
 The reference stops sampling a pixel block once a Student-t confidence
 interval of the running mean falls below ``maxError`` relative to the pixel
-luminance, up to ``maxSampleFactor`` x the base sample count.  TPU-native
+luminance, up to ``maxSampleFactor`` x the base sample count.  Wavefront
 reframe: per-pixel Welford accumulators (mean image + luminance M2 + count)
 live in device arrays; sampling proceeds in checkpointed rounds of the base
 spp; after each round the converged pixels are dropped and the *remaining

@@ -7,7 +7,7 @@ strategy's contribution is weighted by the balance heuristic over all
 strategies that could have produced the same path (Veach's MIS; the
 reference computes it via ``Path::misWeight``).
 
-TPU-native redesign (SURVEY.md §7): the reference's pointer-linked
+Wavefront redesign (SURVEY.md §7): the reference's pointer-linked
 ``PathVertex``/``PathEdge`` chains become **fixed-depth SoA vertex arrays**
 — one dict of (N,)/(N,3) arrays per static vertex index, built by a
 statically unrolled random walk over the whole wavefront.  Every (s,t)
@@ -572,7 +572,8 @@ def camera_pdf_dir(scene: Scene, d_world):
     under uniform film-position sampling: 1 / (A_img cos^3 theta)."""
     sensor = scene.sensor
     d_cam = m.normalize(
-        jnp.einsum("ij,...j->...i", sensor.to_camera[:3, :3], d_world))
+        jnp.einsum("ij,...j->...i", sensor.to_camera[:3, :3], d_world,
+                   precision=jax.lax.Precision.HIGHEST))
     cos_t = jnp.maximum(d_cam[..., 2], 1e-6)
     a_img = 4.0 * sensor.tan_x * sensor.tan_y
     return 1.0 / (a_img * cos_t ** 3)

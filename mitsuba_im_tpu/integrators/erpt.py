@@ -6,10 +6,10 @@ equal-deposition Markov chain of local perturbations, preserving
 unbiasedness (the seeds are exactly distributed, so chains only reshuffle
 energy within luminance contours).
 
-TPU-native shape: one seed per lane (a full W*H wavefront per pass), then a
+Wavefront shape: one seed per lane (a full W*H wavefront per pass), then a
 ``lax.fori_loop`` of lockstep small-step mutations in *primary sample space*
-(the reference's lens/caustic path-space perturbations don't vectorize onto
-8x128 lanes; the primary-space perturbation explores the same local
+(the reference's lens/caustic path-space perturbations don't vectorize over
+lanes; the primary-space perturbation explores the same local
 neighborhoods).  With ``bidirectional=true`` seeds and chain states are
 evaluated through the unified splat sampler
 (:mod:`..bidir.pathsampler` = the reference ``PathSampler::sampleSplats``,

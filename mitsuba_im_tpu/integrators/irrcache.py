@@ -3,11 +3,11 @@
 The reference populates an octree of irradiance records during a pre-pass
 (hemisphere-sampled irradiance + harmonic-mean distance per record,
 ``librender/irrcache.cpp``) and interpolates them with Ward's weighting at
-render time.  TPU-native reframe: records live in flat SoA arrays and the
+render time.  Wavefront reframe: records live in flat SoA arrays and the
 interpolation is a *dense* (pixels x records) weighted gather — a regular,
 compiler-tileable computation that replaces the octree's pointer chasing
-(the record count is a few thousand, so the dense product is cheap on the
-MXU/VPU while staying exact: every record is considered for every pixel,
+(the record count is a few thousand, so the dense product is cheap while
+staying exact: every record is considered for every pixel,
 no tree-pruning approximation).
 
 Pipeline:
@@ -41,6 +41,8 @@ from ..core import rng as mrng
 from ..sampler import KIND_BY_NAME
 from ..sensor.table import sample_ray
 from ..emitter import table as em
+
+_HI = jax.lax.Precision.HIGHEST  # record weights in full f32, never TF32
 
 
 @functools.partial(jax.jit, static_argnames=("n_samples", "max_depth"))
@@ -134,13 +136,14 @@ def _gather_cache(p, ns, rec_p, rec_n, rec_E, rec_R, rec_valid, quality,
     """
     if grid is None:
         d = jnp.linalg.norm(p[:, None, :] - rec_p[None, :, :], axis=-1)
-        ndot = jnp.clip(jnp.einsum("nc,mc->nm", ns, rec_n), -1.0, 1.0)
+        ndot = jnp.clip(jnp.einsum("nc,mc->nm", ns, rec_n, precision=_HI),
+                        -1.0, 1.0)
         w = 1.0 / (d / jnp.maximum(rec_R[None, :], 1e-4)
                    + jnp.sqrt(jnp.maximum(1.0 - ndot, 0.0)) + 1e-6)
         ok = (w > 1.0 / quality) & rec_valid[None, :] & (ndot > 0.1)
         w = jnp.where(ok, w, 0.0)
         wsum = jnp.sum(w, axis=1)
-        E = jnp.einsum("nm,mc->nc", w, rec_E) \
+        E = jnp.einsum("nm,mc->nc", w, rec_E, precision=_HI) \
             / jnp.maximum(wsum, 1e-9)[..., None]
         # fallback: nearest valid record when no record qualifies
         d_masked = jnp.where(rec_valid[None, :] & (ndot > 0.0), d, jnp.inf)
@@ -159,14 +162,15 @@ def _gather_cache(p, ns, rec_p, rec_n, rec_E, rec_R, rec_valid, quality,
     dE, dR = rec_E[dense_ids], rec_R[dense_ids]
     dv = rec_valid[dense_ids]
     d = jnp.linalg.norm(p[:, None, :] - dp[None, :, :], axis=-1)
-    ndot = jnp.clip(jnp.einsum("nc,kc->nk", ns, dn), -1.0, 1.0)
+    ndot = jnp.clip(jnp.einsum("nc,kc->nk", ns, dn, precision=_HI),
+                    -1.0, 1.0)
     w = 1.0 / (d / jnp.maximum(dR[None, :], 1e-4)
                + jnp.sqrt(jnp.maximum(1.0 - ndot, 0.0)) + 1e-6)
     ok = (w > 1.0 / quality) & dv[None, :] & (ndot > 0.1)
     w = jnp.where(ok, w, 0.0)
     d_n = jnp.where(dv[None, :] & (ndot > 0.0), d, jnp.inf)
     near_k = jnp.argmin(d_n, axis=1)
-    acc = (jnp.sum(w, axis=1), jnp.einsum("nk,kc->nc", w, dE),
+    acc = (jnp.sum(w, axis=1), jnp.einsum("nk,kc->nc", w, dE, precision=_HI),
            jnp.min(d_n, axis=1), dE[near_k])
 
     # grid part: 27-neighborhood, up to GRID_CAP records per cell

@@ -6,7 +6,7 @@ mutator set ``src/libbidir/mut_lens.h``, ``mut_caustic.h``, ``mut_mchain.h``,
 ``mut_manifold.cpp`` — pointer-walking edits of an explicit vertex chain,
 each preserving part of the path while regenerating the rest.
 
-TPU-native reframe: the stateless counter RNG makes every path a
+Wavefront reframe: the stateless counter RNG makes every path a
 *deterministic replay* of its primary-sample table (1 camera block + 3
 blocks per bounce), so "preserve part of the path" = "hold those blocks
 fixed".  Each reference mutator maps onto a block-structured perturbation of
@@ -118,10 +118,7 @@ class MLTConfig:
     # strategies enter the chain's strategy space, so caustics seen through
     # glass are exploitable by perturbation instead of being separated from
     # the eye-replay space by a zero-contribution moat.  ON by default for
-    # reference parity (MLT always runs over PathSampler) — the mutation
-    # cost was measured at only 1.10x eye-replay (260 vs 236 ns/mutation,
-    # Cornell depth 6, docs/PERF_NOTES.md round 5), so the old "~2x
-    # cheaper" rationale for defaulting to eye replay was wrong.
+    # reference parity (MLT always runs over PathSampler).
     bidirectional: bool = static_field(default=True)
     # scene has participating media (threads the extra per-step walk
     # block through the bidirectional table layout)

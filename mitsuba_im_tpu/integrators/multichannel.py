@@ -1,7 +1,7 @@
 """Multi-channel rendering (reference ``src/integrators/misc/multichannel.cpp``).
 
 The reference runs several sub-integrators per sample and writes each into
-its own film channel block.  TPU reframe: each child renders as its own
+its own film channel block.  Wavefront reframe: each child renders as its own
 jit-compiled wavefront over the same sample streams (children are
 independent estimators, so sequential passes produce the same channels as
 the reference's interleaved evaluation), and the results are stacked into

@@ -7,7 +7,7 @@ smooth vertex + BSDF sampling, both weighted with the power heuristic
 from ``rrDepth`` on, ``maxDepth``/``hideEmitters``/``strictNormals``
 semantics, environment handling on escape.
 
-TPU design (SURVEY.md §7): instead of a per-pixel recursive ``Li()``, the
+Wavefront design (SURVEY.md §7): instead of a per-pixel recursive ``Li()``, the
 integrator advances a flat SoA batch of lanes through a ``lax.fori_loop``
 over bounces with masked inactive lanes — static shapes, no divergence
 beyond lane masking, everything fused by XLA.  The loop body is wrapped in
@@ -15,9 +15,8 @@ beyond lane masking, everything fused by XLA.  The loop body is wrapped in
 (path-replay backprop) instead of storing per-bounce intermediates.
 
 The canonical implementation is component-SoA (:func:`path_li_v`): every
-3-vector is a V3 of flat (N,) arrays so all math runs at full 8x128 tile
-density — profiled ~2x faster than the (N, 3)-array formulation, whose
-dot-product reduce fusions and T(4,128)/T(1,128) tiles dominated the pass.
+3-vector is a V3 of flat (N,) arrays, so all math is flat elementwise
+work with no reduce over a trailing axis of 3.
 :func:`path_li` wraps it for (N, 3)-array callers.
 """
 from __future__ import annotations
@@ -48,9 +47,9 @@ class PathConfig:
     # drop depth<=2 (directly visible emitters + single-bounce direct
     # lighting): the MLT separateDirect split (mlt.cpp directSamples)
     skip_direct: bool = static_field(default=False)
-    # camera bundles are coherent: the intersector's full-width prologue
-    # pays off (+15%); incoherent callers (MCMC chain evals, hemisphere
-    # gathers) set False to skip it (it costs ~15% on incoherent bundles)
+    # camera bundles are coherent: they take the hierarchy's full-width
+    # prologue; incoherent callers (MCMC chain evals, hemisphere gathers)
+    # set False to skip it
     coherent: bool = static_field(default=True)
 
 
@@ -111,10 +110,10 @@ def path_li_v(scene: Scene, sampler: mrng.Sampler3, o: V3, d: V3,
         ``skip_first`` (Python-static) marks the peeled first bounce under
         ``cfg.skip_direct``: its depth-2 contributions are dropped without
         any traced depth comparison — the traced ``depth_idx > 0`` form
-        miscompiled under whole-program jit on the TPU backend (78% of
-        lanes kept their depth-2 light; eager TPU and CPU agreed on the
-        correct value; caught while calibrating separate-direct MLT and
-        now pinned by parity_check.py's skip_direct scene)."""
+        once miscompiled under whole-program jit on an accelerator backend
+        (most lanes kept their depth-2 light while eager execution and the
+        CPU agreed on the correct value; pinned by parity_check.py's
+        skip_direct scene)."""
         s = st["sampler"]
         frame = (st["ss"], st["ts"], st["ns"])
         act = st["active"]

@@ -8,7 +8,7 @@ vector of uniform random numbers that drives an ordinary path tracer, with
 two-stage luminance pre-pass with *online* mean-brightness tracking from the
 large steps (``pssmlt_proc.cpp:286-611``); we mirror that design.
 
-TPU-native shape (SURVEY.md §2.7 "independent-chain parallelism"): instead of
+Wavefront shape (SURVEY.md §2.7 "independent-chain parallelism"): instead of
 one chain per CPU thread, a *lockstep ensemble* of thousands of chains lives
 in SoA arrays — every Metropolis step is one batched ``path_li`` evaluation
 over all chains (a single fused wavefront), acceptance and mutation are
@@ -29,11 +29,11 @@ N total mutation-steps, pixel j's mean radiance is
 
 `mlt` and the reference's path-space mutators: pointer-based path editing
 (bidir/lens/caustic/manifold perturbations, ``src/libbidir/mut_*.cpp``) does
-not vectorize onto 8x128 lanes — each mutation walks a different-length
+not vectorize over lanes — each mutation walks a different-length
 vertex chain.  The `mlt` plugin therefore maps onto this same ensemble
 engine with a lower large-step probability (pure perturbation-style
 exploration), preserving the capability (unbiased MCMC rendering robust to
-hard visibility) with a TPU-idiomatic state representation.
+hard visibility) with a wavefront-idiomatic state representation.
 """
 from __future__ import annotations
 

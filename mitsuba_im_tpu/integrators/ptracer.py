@@ -5,7 +5,7 @@ Parity target: ``/root/reference/src/integrators/ptracer/``
 connections) built on the particle-tracing infrastructure
 (``include/mitsuba/render/particleproc.h:45``).
 
-TPU shape: a flat batch of light particles advances through a masked
+Wavefront shape: a flat batch of light particles advances through a masked
 ``fori_loop``; at every vertex a camera connection is evaluated
 (``sensor.connect``) and appended to a per-bounce splat list which the
 render job scatter-adds into the film.  The estimator matches the

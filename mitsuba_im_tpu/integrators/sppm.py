@@ -6,7 +6,7 @@ gather radii (Hachisuka & Jensen 2009), built on the particle-tracing
 infrastructure (``include/mitsuba/render/particleproc.h:45``) and the
 balanced point-kd photon map (``photonmap.h:34``).
 
-TPU-native redesign (SURVEY.md §2.7 "particle/photon parallelism"): the
+Wavefront redesign (SURVEY.md §2.7 "particle/photon parallelism"): the
 CPU kd-tree photon map becomes a **sort-based spatial hash grid** —
 
   1. photon pass: a flat wavefront of light subpaths deposits photons at

@@ -8,11 +8,10 @@ tracer, medium transitions at transmissive boundaries, attenuated shadow
 rays through null boundaries (``Scene::sampleAttenuatedEmitterDirect``
 analog, scene.cpp), and Russian roulette.
 
-TPU shape: the same masked-lane ``fori_loop`` wavefront as ``path_li`` with
+Wavefront shape: the same masked-lane ``fori_loop`` wavefront as ``path_li`` with
 a per-lane medium id; emitter-hit MIS carries the previous vertex's
 directional pdf through the loop state.  Like the path tracer, the
-canonical implementation is component-SoA (V3 of flat (N,) arrays — full
-8x128 tile density); ``volpath_li`` wraps it for (N, 3)-array callers.
+canonical implementation is component-SoA (V3 of flat (N,) arrays); ``volpath_li`` wraps it for (N, 3)-array callers.
 
 Medium models: homogeneous sigma_s/sigma_a with channel-averaged
 free-flight sampling and spectral reweighting; heterogeneous grid media

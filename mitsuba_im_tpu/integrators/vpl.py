@@ -5,7 +5,7 @@ virtual point lights by random walks from the emitters
 (``src/librender/vpl.cpp`` generateVPLs), then light every pixel by summing
 the direct contribution of each VPL with a clamped geometry term.
 
-TPU-native shape: the VPL set is a small SoA array; the render is a
+Wavefront shape: the VPL set is a small SoA array; the render is a
 ``lax.fori_loop`` over VPLs where each iteration evaluates ALL pixels
 against one VPL (one shadow-ray wavefront + two vectorized BSDF evals) —
 the transpose of the reference's per-pixel VPL loop, chosen so every step

@@ -4,7 +4,7 @@ Rebuild of the im-mts interactive stack
 (``/root/reference/src/im-mts/scene.cpp:265-473`` InteractiveSceneProcess,
 ``src/librender/integrator.cpp:336-405`` ImageOrderIntegrator,
 ``include/mitsuba/render/integrator2.h:49`` ResponsiveIntegrator) in
-TPU-native form:
+Wavefront form:
 
 - the unit of cooperative scheduling is one jitted 1-spp pass (hundreds of
   microseconds to tens of ms on chip) instead of a 64-sample pixel strip —

@@ -2,7 +2,7 @@
 
 Parity target: ``/root/reference/src/im-mts/shell.cpp:937`` (imgui/GLFW
 app with fly camera, live preview, hot reload).  Without a GL stack, the
-TPU build renders the live preview straight into the terminal: each
+The renderer draws the live preview straight into the terminal: each
 character cell shows two pixels via the U+2580 upper-half-block with
 24-bit fg/bg colors, so a 200x50 terminal is a 200x100 viewport.  All
 the interaction verbs survive:

@@ -152,7 +152,7 @@ def _gridvolume(props: Properties, ctx=None):
 def _hgridvolume(props: Properties, ctx=None):
     """Hierarchical grid (hgridvolume.cpp:70-127): the dictionary file lists
     occupied cells whose gridvolume blocks are composited into one dense
-    grid in the flat HBM atlas (sparse-block pointer chasing has no place
+    grid in the flat device atlas (sparse-block pointer chasing has no place
     on vector lanes; absent cells stay zero)."""
     from .volume import read_hgrid
 

@@ -3,7 +3,7 @@
 Parity targets: ``/root/reference/src/medium/homogeneous.cpp`` (closed-form
 transmittance + distance sampling), ``heterogeneous.cpp`` (grid-density
 media with unbiased free-flight sampling; the reference integrates density
-with composite Simpson or samples via its ray-marching scheme — the TPU
+with composite Simpson or samples via its ray-marching scheme — this
 build uses **delta/Woodcock tracking** for distance sampling and **ratio
 tracking** for transmittance, both branch-free bounded loops over the whole
 lane batch), phase functions ``isotropic``/``hg``/``rayleigh``
@@ -15,7 +15,7 @@ density(x) — spectrally uniform — and sigma_s(x) = sigma_t(x) * albedo(x).
 Because sigma_t is gray, delta tracking is *exact*: every accepted
 tentative collision is a real collision with weight albedo(x), and
 escaping to the surface carries weight 1 (transmittance and pdf cancel).
-Density grids live in one flat HBM atlas; per-medium rows store the
+Density grids live in one flat device atlas; per-medium rows store the
 offset/resolution/world-to-voxel affine and the majorant.
 """
 from __future__ import annotations
@@ -123,7 +123,7 @@ def _flake_sigma_table(stddev: float, K: int = PHASE_TAB) -> np.ndarray:
     """Projected flake area sigma(c) = int D(m) |w.m| dm as a function of
     c = |w.a| (azimuthal symmetry), by Gauss-Legendre x uniform-phi
     quadrature.  The reference expands this in Chebyshev series
-    (microflake_fiber.h); a 32-entry lerp table is equivalent on the VPU."""
+    (microflake_fiber.h); a 32-entry lerp table is equivalent here."""
     s = max(float(stddev), 1e-4)
     C = _flake_norm_const(s)
     t, wt = np.polynomial.legendre.leggauss(128)       # cos-theta over m
@@ -336,7 +336,8 @@ def _trilinear(atlas, offset, res, w2g, p):
     """Trilinear grid lookup. atlas (D,) or (D,C); offset (n,), res (n,3)
     int, w2g (n,12) affine rows; p (n,3) world points. Zero outside."""
     rows = w2g.reshape(w2g.shape[:-1] + (3, 4))
-    gpt = jnp.einsum("...ij,...j->...i", rows[..., :3], p) + rows[..., 3]
+    gpt = jnp.einsum("...ij,...j->...i", rows[..., :3], p,
+                     precision=jax.lax.Precision.HIGHEST) + rows[..., 3]
     resf = res.astype(Float)
     inside = jnp.all((gpt >= 0.0) & (gpt <= resf - 1.0 + 1e-4), axis=-1)
     gc = jnp.clip(gpt, 0.0, jnp.maximum(resf - 1.0, 0.0))

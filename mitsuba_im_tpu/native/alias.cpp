@@ -1,9 +1,9 @@
-// Walker/Vose alias-table construction for O(1) discrete sampling on TPU.
+// Walker/Vose alias-table construction for O(1) discrete sampling.
 //
-// The TPU framework replaces the reference envmap emitter's hierarchical
+// The renderer replaces the reference envmap emitter's hierarchical
 // 2D CDF binary search (/root/reference/src/emitters/envmap.cpp, sampling
 // via Distribution2D-style tables) with alias tables: a per-lane binary
-// search is a ~20-iteration gather loop on 8x128 vector lanes, while an
+// search is a ~20-iteration gather loop per lane, while an
 // alias sample is two gathers and a compare.  Construction is inherently
 // sequential per distribution, so it lives here in native code; rows of a
 // 2D conditional table are independent and trivially batched.

@@ -1,10 +1,10 @@
 // Native runtime components: binned-SAH BVH builder producing a threaded
-// (skip-link) flat layout for stackless TPU traversal.
+// (skip-link) flat layout for stackless traversal.
 //
 // Role parity: the reference builds a SAH kd-tree in C++ with parallel
 // min-max binning (/root/reference/include/mitsuba/render/gkdtree.h:1050).
-// The TPU build instead uses a BVH (contiguous-array friendly) built here at
-// scene-compile time and flattened into HBM tensors; traversal happens on
+// This build instead uses a BVH (contiguous-array friendly) built here at
+// scene-compile time and flattened into device arrays; traversal happens on
 // device.  Exposed via a C ABI consumed through ctypes (no pybind11).
 //
 // Build: see Makefile in this directory (produces libmitpu_native.so).

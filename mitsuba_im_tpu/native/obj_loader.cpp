@@ -1,7 +1,7 @@
 // Native Wavefront OBJ parser for mitsuba_im_tpu.
 //
 // The reference parses meshes in C++ (src/shapes/obj.cpp); this is the
-// TPU build's native-runtime equivalent for the host-side data-loading
+// renderer's native-runtime equivalent for the host-side data-loading
 // path: ~30-60x faster than the pure-Python tokenizer on multi-million-
 // triangle files, with byte-identical output semantics (v/vn/vt records,
 // polygon fan triangulation, negative indices, per-corner (v,vt,vn)

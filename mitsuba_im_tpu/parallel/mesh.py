@@ -1,12 +1,12 @@
 """Multi-chip rendering: ray-batch data parallelism over a device mesh.
 
-The TPU-native replacement for the reference's scheduler/cluster stack
+The device-side replacement for the reference's scheduler/cluster stack
 (``/root/reference/include/mitsuba/core/sched.h:351`` local workers,
 ``sched_remote.h:50`` TCP/SSH remote workers): no bespoke transport — the
-scene is replicated into every chip's HBM (the analog of per-node resource
+scene is replicated into every device's memory (the analog of per-node resource
 caching, sched_remote.cpp ENewResource), pixels/samples are sharded across
 the mesh (the analog of tile ownership), and the film is combined with a
-single ``psum`` over ICI (the analog of serialized WorkResult merging).
+single ``psum`` over the mesh (the analog of serialized WorkResult merging).
 Gradients all-reduce the same way, overlapped by XLA with backward compute.
 """
 from __future__ import annotations
@@ -38,15 +38,17 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> Mesh:
     """Multi-host path: join the ``jax.distributed`` runtime and return the
-    *global* device mesh (every process's chips; collectives ride ICI
-    within a host and DCN across hosts — XLA picks the transport from the
-    mesh topology).
+    *global* device mesh (every process's devices; collectives ride NVLink
+    within a host and the network across hosts -- XLA and NCCL pick the
+    transport).  Pass ``coordinator_address`` ("host:port"),
+    ``num_processes`` and ``process_id`` where no cluster environment
+    provides them.
 
     The analog of the reference's ``mtssrv`` cluster join
     (``src/mitsuba/mtssrv.cpp``): instead of a bespoke TCP protocol, the
     distributed runtime handles membership/barriers and ``psum`` replaces
     WorkResult merging.  With no arguments the standard env variables
-    (``JAX_COORDINATOR_ADDRESS`` etc. / TPU pod auto-detection) apply.
+    (``JAX_COORDINATOR_ADDRESS`` etc.) apply.
     """
     kw = {}
     if coordinator_address is not None:
@@ -103,7 +105,7 @@ def render_pass_sharded(mesh: Mesh, scene: Scene, settings: RenderSettings,
         film = Film(data=film_data, width=W, height=H,
                     ftype=settings.rfilter, radius=settings.rfilter_radius or 2.0)
         film = splat(film, pos, li * w_sensor[..., None], active=valid)
-        # combine per-device partial films over ICI
+        # combine per-device partial films across the mesh
         return jax.lax.psum(film.data - film_data, axis) + film_data
 
     sharded = shard_map(

@@ -1,4 +1,4 @@
-"""Cluster rendering over byte streams — the TPU-native analog of the
+"""Cluster rendering over byte streams — the device-side analog of the
 reference's remote scheduler + ``mtssrv`` network node.
 
 Reference surface reproduced here (see SURVEY.md §2.1/§2.6/§3.4):
@@ -18,7 +18,7 @@ Reference surface reproduced here (see SURVEY.md §2.1/§2.6/§3.4):
   ``exec:ssh user@host python -m mitsuba_im_tpu.cli.mtssrv -ls`` spawns the
   worker over a pipe; plain ``host[:port]`` uses TCP (default port 7554).
 
-TPU-native design decisions (vs. the reference's tile WorkUnits):
+Design decisions (vs. the reference's tile WorkUnits):
 
 - The unit of distribution is a **sample-index range**, not an image tile:
   every node renders the full image for its sample indices and returns the

@@ -1,6 +1,6 @@
 """Render orchestration: samples -> integrator -> film.
 
-The TPU analog of ``RenderJob``/``BlockedRenderProcess``
+The wavefront analog of ``RenderJob``/``BlockedRenderProcess``
 (``/root/reference/src/librender/renderjob.cpp:86``, ``renderproc.h:39``):
 instead of spiral CPU tiles pulled from a scheduler, the whole image is a
 flat wavefront; samples are processed in jit-compiled passes of one sample-
@@ -26,6 +26,11 @@ from ..integrators.path import PathConfig, path_li
 from ..integrators.simple import direct_li, ao_li, field_li
 from ..scene.build import RenderSettings
 from ..scene.scene import Scene
+
+
+# integrators rendered pass by pass into a film by ``render_film``; every
+# other one has its own driver behind ``render``
+FILM_INTEGRATORS = ("path", "volpath", "direct", "ao", "field", "motion")
 
 
 def _integrator_fn(settings: RenderSettings):
@@ -274,12 +279,25 @@ def render_film(scene: Scene, settings: RenderSettings, spp: int | None = None,
                 ftype=film.ftype, radius=film.radius)
 
 
+def lower_render_pass(scene: Scene, settings: RenderSettings):
+    """``render_film``'s jitted one-spp pass, lowered for this scene; its
+    ``compile()`` gives the memory analysis and the optimized HLO, and is
+    called as ``compiled(scene, film_data, sample_idx, seed)``."""
+    film = make_film(settings.width, settings.height, settings.rfilter,
+                     settings.rfilter_radius)
+    return _render_pass.lower(
+        scene, film.data, jnp.uint32(0), jnp.uint32(settings.seed),
+        width=settings.width, height=settings.height, spp=settings.spp,
+        kind=KIND_BY_NAME.get(settings.sampler, mrng.INDEPENDENT),
+        li_fn=_integrator_fn(settings), ftype=film.ftype, radius=film.radius)
+
+
 def tonemap_ldr(img: np.ndarray, settings: RenderSettings) -> np.ndarray:
     """ldrfilm develop chain (films/ldrfilm.cpp): gamma or Reinhard."""
     img = np.asarray(img, np.float32) * (2.0 ** settings.exposure)
     if settings.tonemap == "reinhard":
         # numpy Rec.709 luminance (keep the tonemap chain jax-free so the
-        # mtsutil utilities never touch the TPU)
+        # mtsutil utilities never touch the device)
         lum = (img[..., 0] * 0.212671 + img[..., 1] * 0.715160
                + img[..., 2] * 0.072169)
         avg = np.exp(np.mean(np.log(np.maximum(lum, 1e-6))))

@@ -3,7 +3,7 @@
 The reference propagates a ``PixelDifferential``
 (``/root/reference/include/mitsuba/render/integrator2.h:136``) through the
 sensor and transfers it at the first intersection to drive the MIP/EWA
-texture filter (``mipmap.h``).  TPU redesign: differentials are computed in
+texture filter (``mipmap.h``).  Redesign: differentials are computed in
 closed form on the wavefront — no per-ray state is carried through bounces:
 
 - :func:`camera_ray_differentials` re-evaluates the sensor mapping at

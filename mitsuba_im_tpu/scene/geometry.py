@@ -1,6 +1,6 @@
 """Flattened scene geometry: SoA primitive tables + surface interactions.
 
-The TPU analog of the reference's Shape/TriMesh/Intersection layer
+The wavefront analog of the reference's Shape/TriMesh/Intersection layer
 (``/root/reference/include/mitsuba/render/shape.h:178``,
 ``trimesh.h:68``): all triangle meshes are concatenated into one SoA soup;
 analytic spheres and disks keep exact quadric intersections.  Per-shape
@@ -119,7 +119,7 @@ class Interaction3:
 
     Same information as :class:`Interaction` but every 3-vector is a
     :class:`~mitsuba_im_tpu.core.v3.V3` of flat (N,) components and ``uv``
-    is split into two flat arrays — full 8x128 tile density everywhere.
+    is split into two flat arrays.
     """
 
     p: object  # V3
@@ -365,7 +365,7 @@ def compute_interaction(geom: Geometry, o: jax.Array, d: jax.Array, hit: Hit) ->
 
     All per-kind attributes of a primitive are packed into one matrix so
     each lane does a single bundled row lookup (select-chain/wide gather)
-    instead of a dozen scalar gathers — the dominant cost on TPU otherwise.
+    instead of a dozen scalar gathers.
     """
     from ..core.gather import RowBundle
 
@@ -397,7 +397,8 @@ def compute_interaction(geom: Geometry, o: jax.Array, d: jax.Array, hit: Hit) ->
         # rotate BLAS-local normals into world space per instance
         R = geom.inst_rot[jnp.clip(hit.inst_or_zero(), 0,
                                    geom.inst_rot.shape[0] - 1)]
-        rot = lambda n: m.normalize(jnp.einsum("...ij,...j->...i", R, n))
+        rot = lambda n: m.normalize(jnp.einsum("...ij,...j->...i", R, n,
+                                                  precision=jax.lax.Precision.HIGHEST))
         ng_tri = rot(ng_tri)
         ns_tri = rot(ns_tri)
     uv_tri = (

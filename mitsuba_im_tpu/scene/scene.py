@@ -1,6 +1,6 @@
 """Compiled scene: one pytree holding every table the kernels need.
 
-The TPU analog of the reference ``Scene`` object
+The wavefront analog of the reference ``Scene`` object
 (``/root/reference/include/mitsuba/render/scene.h:49``): geometry + BVH +
 BSDF/texture/emitter tables + sensor + per-shape attribute maps, all
 device-resident arrays.  Being a pytree, the entire scene flows through
@@ -31,7 +31,7 @@ class Scene:
     textures: TextureTable
     emitters: EmitterTable
     media: MediumTable
-    clusters: object  # ClusterSet or None (big-scene TPU intersector)
+    clusters: object  # Hierarchy, ClusterSet or None (big-scene intersector)
     sensor: Sensor
     shape_bsdf: jax.Array  # (S,) int32
     shape_emitter: jax.Array  # (S,) int32

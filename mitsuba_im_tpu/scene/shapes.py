@@ -302,7 +302,7 @@ def _instance(props: Properties, ctx=None):
 def _deformable(props: Properties, ctx=None):
     """Keyframed animated mesh (``src/shapes/deformable.cpp`` SpaceTimeKDTree).
 
-    TPU redesign: instead of a 4D kd-tree (``sahkdtree4.h:113``), the two
+    Redesign: instead of a 4D kd-tree (``sahkdtree4.h:113``), the two
     bracketing keyframes are both resident and the *whole wavefront* shares
     one shutter time per pass — vertex positions lerp on device
     (``Scene.with_time``) before tracing, so a progressive render

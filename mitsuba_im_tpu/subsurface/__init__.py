@@ -6,11 +6,10 @@ uses blue-noise placement + an irradiance octree, ``irrtree.cpp``,
 ``bluenoise.cpp``) and turned into outgoing radiance through the dipole
 diffusion profile Rd(r) (Jensen et al. 2001).
 
-TPU-native redesign: the hierarchical octree's job is to cull far-away
-contributions; on 8x128 vector lanes a **dense chunked sum** over all
-sample points is faster and exact — evaluating Rd for (N lanes x P points)
-is a pure broadcast/reduce that XLA maps straight onto the VPU, so the
-octree disappears.  Surface points are area-weighted samples of the
+Wavefront redesign: the hierarchical octree's job is to cull far-away
+contributions; over a wavefront a **dense chunked sum** over all sample
+points is exact and regular — evaluating Rd for (N lanes x P points) is a
+pure broadcast/reduce that XLA fuses, so the octree disappears.  Surface points are area-weighted samples of the
 shape's triangles (host-side), their irradiance is one batched NEE
 wavefront (device), and shading adds Lo = Ft(wo)/pi * sum_p Rd(|x-x_p|)
 E_p A_p for lanes whose shape carries a subsurface record.
@@ -293,7 +292,7 @@ def eval_lo(table: SubsurfaceTable, x, wo_cos, rec_id):
 
     Small point clouds use the exact dense chunked sum; larger ones scan
     the 27-neighborhood of the spatial hash grid (cell = 4 diffusion
-    lengths), the TPU analog of the reference's irradiance octree culling
+    lengths), the wavefront analog of the reference's irradiance octree culling
     (``irrtree.cpp``) — the dropped tail beyond 4/sigma_tr carries
     ~e^-4 of the profile's energy.  Cell overflow beyond ``grid_cap`` is
     uniformly subsampled and reweighted (unbiased, sppm.py pattern).

@@ -91,7 +91,7 @@ def _wireframe(props: Properties, ctx=None):
 @register("texture", "vertexcolors")
 def _vertexcolors(props: Properties, ctx=None):
     """Per-vertex colors (``/root/reference/src/textures/vertexcolors.cpp:43``
-    interpolates ``its.color``).  TPU design: the owning mesh bakes its
+    interpolates ``its.color``).  Wavefront design: the owning mesh bakes its
     corner colors into a 2x2-texel atlas block per triangle (the fourth
     texel is c1+c2-c0, which makes bilinear filtering *exactly* barycentric
     interpolation) and per-corner UVs address the block — the hot path is

@@ -2,8 +2,8 @@
 
 Reference surface: ``/root/reference/src/textures/`` (bitmap w/ MIP+EWA,
 checkerboard, gridtexture, scale, wireframe, curvature, vertexcolors) and
-``include/mitsuba/render/mipmap.h``.  TPU design: all bitmap textures are
-packed into one flat HBM atlas; evaluation is a bilinear 4-gather; procedural
+``include/mitsuba/render/mipmap.h``.  Wavefront design: all bitmap textures are
+packed into one flat device atlas; evaluation is a bilinear 4-gather; procedural
 types evaluate inline.  Dispatch is by integer type code with only the types
 present in the scene compiled in (static ``used_types``).
 

@@ -1,30 +1,25 @@
-"""TPU-vs-CPU render parity gate.
+"""Device-vs-CPU render parity check.
 
-Motivation (round 3 incident): a rewrite of the hierarchy compaction
-driver passed the ENTIRE CPU test suite — including front=128 driver
-tests — yet changed the render sum on the real TPU by 22%
-(5.637e5 -> 6.885e5; suspected duplicate-index scatter nondeterminism
-at real scale).  Nothing in the repo would have caught it: tests run on
-the CPU mesh and ``bench.py`` asserts nothing about values.  This gate
-turns that class of TPU-only correctness bug into a red light: it
-renders fixed scenes with a fixed seed on the default (TPU) backend AND
-on the in-process CPU backend and requires the results to agree.
+Renders fixed scenes with a fixed seed on the default device (the GPU)
+AND on the in-process CPU backend, and requires the results to agree.
+Tests run on the CPU, so this is what catches a device-only correctness
+bug: a miscompile, a nondeterministic scatter, a reduced-precision matrix
+product.  One process, one card: the CPU leg uses the same process.
 
-Run standalone (``python parity_check.py``) or via ``bench.py`` which
-reports the result as a ``parity_ok`` metric every driver round.
+Run standalone (``python parity_check.py``), or as phase 3 of
+``chip_smoke.py``.
 
 Checks cover the distinct execution regimes, each gated PER PIXEL
-(99.9th-percentile relative error + bad-pixel fraction — a sum check
-would pass a TPU-only bug that merely *redistributes* energy between
-pixels, exactly the suspected r3 failure class) plus one gradient
-check (d sum(image) / d albedo, TPU vs CPU) so the differentiable
-path — the product's whole point — has an on-chip correctness gate:
-- Cornell wavefront path tracer (fused megakernel regime);
+(99.9th-percentile relative error + bad-pixel fraction -- a sum check
+would pass a device-only bug that merely *redistributes* energy between
+pixels) plus one gradient check (d sum(image) / d albedo, device vs CPU),
+so the differentiable path has an on-device correctness gate:
+- Cornell wavefront path tracer (brute-force intersection);
 - the skip_direct peeled-bounce variant;
 - reverse-mode path-replay gradients w.r.t. the BSDF albedo table;
-- a ~69k-triangle mesh through the two-level hierarchy at a resolution
-  that engages the tail-refill compaction driver (N > FRONT), the exact
-  machinery the r3 bug lived in.
+- a 70k-triangle mesh at a resolution that engages the hierarchy's
+  compaction driver (N > FRONT) on the device, against the threaded BVH
+  walk on the CPU.
 
 Analog of the reference's cross-check discipline (SURVEY §4.4: the
 reference validates sampling vs pdf and runs scene regression renders;
@@ -32,12 +27,13 @@ here the "other implementation" is the same code on a second backend).
 """
 from __future__ import annotations
 
+import os
 import sys
 
 
 RTOL = 5e-3  # f32 reduction-order drift across backends is ~1e-6..1e-4;
-             # the r3 bug was 2.2e-1.  5e-3 leaves two orders of margin
-             # on both sides.
+             # a redistribution bug moves whole regions (~1e-1).  5e-3
+             # leaves two orders of margin on both sides.
 
 
 def _render_cornell(scene, n, W, H, device, skip_direct=False):
@@ -109,11 +105,14 @@ def _pix_stats(a, b):
     )
 
 
-def run_parity(verbose=True):
-    """Returns dict(ok, checks=[{name, tpu, cpu, rel}])."""
+def run_parity(verbose=True, res=128, large_res=192):
+    """Returns dict(ok, checks=[{name, device, cpu, rel, ...}]).
+
+    ``res``: Cornell image side; ``large_res``: side of the mesh render
+    (192^2 = 36864 rays > FRONT engages the compaction driver)."""
     import jax
 
-    sys.path.insert(0, ".")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from __graft_entry__ import _tiny_cornell
     from bench_scenes import build_large_scene
 
@@ -123,51 +122,49 @@ def run_parity(verbose=True):
     cpu_dev = jax.devices("cpu")[0]
     checks = []
 
-    def compare(name, tpu_img, cpu_img):
-        tpu_v = float(tpu_img.sum())
+    def compare(name, dev_img, cpu_img):
+        dev_v = float(dev_img.sum())
         cpu_v = float(cpu_img.sum())
-        rel = abs(tpu_v - cpu_v) / max(abs(cpu_v), 1e-30)
-        st = _pix_stats(tpu_img, cpu_img)
+        rel = abs(dev_v - cpu_v) / max(abs(cpu_v), 1e-30)
+        st = _pix_stats(dev_img, cpu_img)
         # per-pixel gate: f32 reduction drift is ~1e-6..1e-4 per pixel,
         # but backend op-order differences can flip a rare hit/miss edge
-        # branch on isolated pixels — gate the 99.9th percentile and the
+        # branch on isolated pixels -- gate the 99.9th percentile and the
         # bad-pixel FRACTION instead of the absolute max (a redistribution
-        # bug like the r3 scatter incident moves whole image regions and
-        # blows frac_bad immediately; a flipped seam pixel does not)
+        # bug moves whole image regions and blows frac_bad immediately; a
+        # flipped seam pixel does not)
         ok = rel < RTOL and st["p999"] < 1e-3 and st["frac_bad"] < 2e-3
-        checks.append(dict(name=name, tpu=tpu_v, cpu=cpu_v, rel=rel,
+        checks.append(dict(name=name, device=dev_v, cpu=cpu_v, rel=rel,
                            ok=ok, **st))
 
     # --- Cornell wavefront regime -------------------------------------
     scene, _ = _tiny_cornell()
-    W = H = 128
+    W = H = res
     compare("cornell",
             _render_cornell(scene, W * H, W, H, default_dev),
             _render_cornell(scene, W * H, W, H, cpu_dev))
 
     # --- skip_direct (separate-direct MCMC) regime --------------------
-    # a traced per-depth mask in the bounce loop miscompiled under
-    # whole-program jit on TPU only (78% of lanes kept their depth-2
-    # light; eager TPU and CPU agreed); the fix peels the first bounce —
-    # this render pins the class
+    # a traced per-depth mask in the bounce loop once miscompiled under
+    # whole-program jit on an accelerator only; the fix peels the first
+    # bounce -- this render pins the class
     compare("skip_direct",
             _render_cornell(scene, W * H, W, H, default_dev,
                             skip_direct=True),
             _render_cornell(scene, W * H, W, H, cpu_dev, skip_direct=True))
 
-    # --- gradient parity (the differentiable path IS the product) -----
-    g_tpu = _grad_cornell(scene, W * H, W, H, default_dev)
+    # --- gradient parity ----------------------------------------------
+    g_dev = _grad_cornell(scene, W * H, W, H, default_dev)
     g_cpu = _grad_cornell(scene, W * H, W, H, cpu_dev)
     gscale = max(float(np.abs(g_cpu).max()), 1e-12)
-    grel = float(np.abs(g_tpu - g_cpu).max() / gscale)
-    checks.append(dict(name="grad_albedo", tpu=float(g_tpu.sum()),
+    grel = float(np.abs(g_dev - g_cpu).max() / gscale)
+    checks.append(dict(name="grad_albedo", device=float(g_dev.sum()),
                        cpu=float(g_cpu.sum()), rel=grel, ok=grel < RTOL,
                        max_rel=grel, p999=grel, frac_bad=0.0))
 
-    # --- hierarchy tail-refill driver regime --------------------------
-    # 192x192 = 36864 rays > FRONT (8192): the compaction driver with
-    # scatter/refill runs on both backends at a scale past the CPU tests'.
-    scene, (W, H), _n = build_large_scene(res=192, subdiv=0)
+    # --- large-scene regime: hierarchy driver vs the CPU BVH walk ------
+    scene, settings, _n = build_large_scene(large_res, subdiv=0)
+    W, H = settings.width, settings.height
     compare("large_scene_driver",
             _render_cornell(scene, W * H, W, H, default_dev),
             _render_cornell(scene, W * H, W, H, cpu_dev))
@@ -176,12 +173,16 @@ def run_parity(verbose=True):
     if verbose:
         for c in checks:
             flag = "OK " if c["ok"] else "FAIL"
-            print(f"[{flag}] {c['name']}: tpu={c['tpu']:.6e} "
+            print(f"[{flag}] {c['name']}: device={c['device']:.6e} "
                   f"cpu={c['cpu']:.6e} rel={c['rel']:.2e} "
                   f"p999={c['p999']:.2e} frac_bad={c['frac_bad']:.2e}")
     return dict(ok=ok, checks=checks)
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mitsuba_im_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     r = run_parity()
     sys.exit(0 if r["ok"] else 1)

@@ -11,17 +11,11 @@ from mitsuba_im_tpu.integrators.adaptive import (
 
 
 def cornell(tmp_path, integrator_xml, res=16, spp=4):
-    from tests.test_render import CORNELL_XML, write_scene
+    from mitsuba_im_tpu.scene.cornell import write_cornell
     from mitsuba_im_tpu.scene.xml import load_scene
 
-    xml = CORNELL_XML.format(max_depth=3, spp=spp, res=res)
-    import re
-    xml = re.sub(
-        r'<integrator type="path">.*?</integrator>', integrator_xml, xml,
-        flags=re.S)
-    p = os.path.join(tmp_path, "scene.xml")
-    with open(p, "w") as f:
-        f.write(xml)
+    p = write_cornell(os.path.join(tmp_path, "scene.xml"), res=res, spp=spp,
+                      integrator=integrator_xml)
     return load_scene(p)
 
 

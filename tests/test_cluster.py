@@ -1,5 +1,5 @@
 """Cluster-marching intersector: cross-validation against brute force on
-random soups and the reference bunny (the large-scene TPU path)."""
+random soups and the reference bunny."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

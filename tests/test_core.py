@@ -171,7 +171,7 @@ class TestDistribution:
 
 
 class TestAliasSampling:
-    """O(1) alias-table path of Distribution2D (TPU replacement for the
+    """O(1) alias-table path of Distribution2D (device-side replacement for the
     envmap CDF binary search, /root/reference/src/emitters/envmap.cpp)."""
 
     def test_alias_cell_frequencies_match_pmf(self):

@@ -3,7 +3,7 @@
 Round-3 lesson: the driver branch (N > ``front``) of
 ``accel/hierarchy.intersect_hierarchy`` was only ever exercised at real
 render scales, so a driver rewrite passed the whole CPU suite while
-corrupting TPU renders.  This test forces the driver with a tiny ``front``
+corrupting accelerator renders.  This test forces the driver with a tiny ``front``
 and requires bit-identical results against the lockstep (N <= front) path
 on the same backend, covering refill, tombstone, retire-append and the
 final unique-index scatter, plus the any-hit and masked-lane variants.

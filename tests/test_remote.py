@@ -106,7 +106,6 @@ class TestDistributedRender:
 
         ref = render(scene, settings)
         # force the node onto the CPU platform to match the test process
-        # (the sandbox presets a TPU platform that wins over the env var)
         node_argv = [
             sys.executable, "-c",
             "import jax; jax.config.update('jax_platforms','cpu'); "

@@ -7,7 +7,6 @@
 - BVH vs brute-force render equality.
 """
 import os
-import textwrap
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,6 +14,7 @@ import pytest
 
 from mitsuba_im_tpu.scene.xml import load_scene
 from mitsuba_im_tpu.scene.build import SceneBuilder
+from mitsuba_im_tpu.scene.cornell import write_cornell
 from mitsuba_im_tpu.scene.mesh import TriMesh
 from mitsuba_im_tpu.render.job import render, render_film
 from mitsuba_im_tpu.film.film import develop, F_BOX
@@ -24,69 +24,10 @@ from mitsuba_im_tpu.emitter import table as et
 from mitsuba_im_tpu.bsdf import common as bc
 
 
-CORNELL_XML = textwrap.dedent("""\
-<scene version="0.6.0">
-    <integrator type="path">
-        <integer name="maxDepth" value="{max_depth}"/>
-    </integrator>
-    <sensor type="perspective">
-        <float name="fov" value="39.3"/>
-        <transform name="toWorld">
-            <lookat origin="0, 1, 3.9" target="0, 1, 0" up="0, 1, 0"/>
-        </transform>
-        <sampler type="independent">
-            <integer name="sampleCount" value="{spp}"/>
-        </sampler>
-        <film type="hdrfilm">
-            <integer name="width" value="{res}"/>
-            <integer name="height" value="{res}"/>
-            <rfilter type="box"/>
-        </film>
-    </sensor>
-    <bsdf type="diffuse" id="white"><rgb name="reflectance" value="0.725 0.71 0.68"/></bsdf>
-    <bsdf type="diffuse" id="red"><rgb name="reflectance" value="0.63 0.065 0.05"/></bsdf>
-    <bsdf type="diffuse" id="green"><rgb name="reflectance" value="0.14 0.45 0.091"/></bsdf>
-
-    <!-- floor -->
-    <shape type="rectangle">
-        <transform name="toWorld"><rotate x="1" angle="-90"/><scale value="1"/></transform>
-        <ref id="white"/>
-    </shape>
-    <!-- ceiling -->
-    <shape type="rectangle">
-        <transform name="toWorld"><rotate x="1" angle="90"/><translate y="2"/></transform>
-        <ref id="white"/>
-    </shape>
-    <!-- back wall -->
-    <shape type="rectangle">
-        <transform name="toWorld"><translate z="-1"/><translate y="1"/></transform>
-        <ref id="white"/>
-    </shape>
-    <!-- left wall (red) -->
-    <shape type="rectangle">
-        <transform name="toWorld"><rotate y="1" angle="90"/><translate x="-1" y="1"/></transform>
-        <ref id="red"/>
-    </shape>
-    <!-- right wall (green) -->
-    <shape type="rectangle">
-        <transform name="toWorld"><rotate y="1" angle="-90"/><translate x="1" y="1"/></transform>
-        <ref id="green"/>
-    </shape>
-    <!-- light -->
-    <shape type="rectangle">
-        <transform name="toWorld"><rotate x="1" angle="90"/><scale value="0.25"/><translate y="1.99"/></transform>
-        <ref id="white"/>
-        <emitter type="area"><rgb name="radiance" value="17 12 4"/></emitter>
-    </shape>
-</scene>
-""")
 
 
 def write_scene(tmp_path, **kw):
-    p = os.path.join(tmp_path, "cornell.xml")
-    with open(p, "w") as f:
-        f.write(CORNELL_XML.format(**kw))
-    return p
+    return write_cornell(os.path.join(tmp_path, "cornell.xml"), **kw)
 
 
 @pytest.fixture(scope="module")

@@ -43,10 +43,9 @@ CORNELL = None
 def _scene():
     global CORNELL
     if CORNELL is None:
-        import textwrap
-        import tests.test_render as tr
+        from mitsuba_im_tpu.scene.cornell import cornell_xml
 
-        xml = tr.CORNELL_XML.format(max_depth=3, spp=1, res=32)
+        xml = cornell_xml(res=32, spp=1, max_depth=3)
         import tempfile
 
         d = tempfile.mkdtemp()
